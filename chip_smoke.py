@@ -1,0 +1,287 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. environment: Python, torch and CUDA versions, the card's name and
+   power limit (``nvidia-smi``);
+2. build: ``nvcc`` compiles every kernel of the main path from
+   ``src/repro_torch/csrc`` for sm_90a (one process per source, all
+   started together);
+3. every kernel against its plain PyTorch version on the card, at the
+   main path's shapes and two small ones, in float32 and bfloat16, with
+   the kernel's and the plain version's times and the bound;
+4. the main path at full width through the user's entry points:
+   ``FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+   device="cuda", max_rounds=3)`` -> ``build_experiment`` -> ``run``, with
+   the launch counters set to 0 just before and read just after;
+5. one round of the default (composed) FedBWO on the card;
+6. the kernel route on the card against the port's CPU route (the route
+   the tests hold against the JAX reference) on a narrow CNN.
+
+It then prints one JSON line describing every ported kernel, and as the
+last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the rest of the repository beside it, it fails and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# The card's memory rate and float32 rate (non-tensor-core), by the name
+# nvidia-smi gives: NVIDIA's data sheets, dense rates at the full power
+# limit.  Bounds are stated against these.
+CARDS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
+         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+
+FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_rates(name):
+    for key in sorted(CARDS, key=len, reverse=True):
+        if key in name:
+            return CARDS[key]
+    raise RuntimeError(f"no memory/compute rates recorded for {name!r}")
+
+
+def time_ms(torch, fn, reps=20, warmup=3):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import random, tree
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.data.synthetic import cnn_task
+    from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
+    from repro_torch.kernels.bwo_evolve import ops as bwo_ops, ref as bwo_ref
+
+    # ---------------------------------------------------- 1. environment --
+    print("== 1. environment")
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    mem_rate, f32_rate = card_rates(name)
+    print(f"device {name}  count {torch.cuda.device_count()}  "
+          f"rates used for bounds: {mem_rate / 1e12} TB/s, "
+          f"{f32_rate / 1e12} TFLOP/s fp32")
+
+    # ---------------------------------------------------------- 2. build --
+    print("== 2. build")
+    builds = {"bwo_evolve": bwo_kernel.build}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(fn) for k, fn in builds.items()}
+        libs = {k: f.result() for k, f in futures.items()}
+    for k, lib in libs.items():
+        print(f"built {k}: {lib.relative_to(ROOT)}")
+    print(f"build seconds {time.perf_counter() - t0:.2f}")
+
+    # ------------------------------------- 3. kernels vs plain versions --
+    print("== 3. bwo_evolve against its plain version on the card")
+    dev = torch.device("cuda")
+    P, D = 6, 2_465_322              # the main path: pop 6, the paper CNN
+    max_err = 0.0
+    for (p, d) in [(P, D), (16, 4097), (4, 100)]:
+        for dtype, tol in [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]:
+            key = random.PRNGKey(p * 7 + d, dev)
+            pop = random.normal(key, (p, d)).to(dtype)
+            fit = random.uniform(random.split(key)[1], (p,))
+            got = bwo_ops.bwo_evolve(pop, fit, key)
+            want = bwo_ops.bwo_evolve_reference(pop, fit, key)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            print(f"  P={p} D={d} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"(tol {tol}) {'ok' if ok else 'FAILED'}")
+            check(ok and math.isfinite(err), f"bwo_evolve disagrees at "
+                  f"P={p} D={d} {dtype}: max_abs_err {err}")
+            max_err = max(max_err, err)
+
+    key = random.PRNGKey(2024, dev)
+    pop = random.normal(key, (P, D))
+    fit = random.uniform(random.split(key)[1], (P,))
+    pop32, p1, p2, b1, b2, gate = bwo_ops.sample(pop, fit, key, pm=0.4,
+                                                 procreate_frac=0.6)
+    kw = dict(pm_gene=0.1, mut_scale=0.05)
+    kernel_ms = time_ms(torch, lambda: bwo_kernel.bwo_evolve_cuda(
+        pop32, p1, p2, b1, b2, gate, **kw))
+    plain_ms = time_ms(torch, lambda: bwo_ref.bwo_evolve_ref(
+        pop32, p1, p2, b1, b2, gate, **kw))
+    parents = torch.unique(torch.cat([p1, p2])).numel()
+    Dp = b1.shape[1]
+    nbytes = (parents * D * 4 + 2 * P * Dp * 4 + P * D * 4
+              + 2 * P * 4 + P * 4)
+    flops = FLOPS_PER_GENE * P * D
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"  P={P} D={D} Dp={Dp}: {parents} distinct parent rows, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP")
+    print(f"  kernel {kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {bound_ms:.4f} ms ({bound_by})  "
+          f"kernel at {bound_ms / kernel_ms:.1%} of bound")
+
+    # one client's share of a main-path round, at full width: local SGD
+    # (2 epochs of 10 batches of 10), the population's seeding, and one
+    # kernel-route BWO generation split into the two threefry bit draws,
+    # all of its sampling, the kernel, and the children's fitness
+    from repro_torch.convert import ravel_params
+    from repro_torch.core.client import ClientHP, make_fitness_fn, make_local_sgd
+    from repro_torch.data import loader, synthetic
+    from repro_torch.metaheuristics.bwo import bwo
+    task = cnn_task()
+    train, _ = synthetic.make_cifar_like(random.PRNGKey(42, dev), 100, 10)
+    data = loader.batch_dataset(train, 10)
+    params = task.init_params(random.PRNGKey(7, dev))
+    sgd = make_local_sgd(task, ClientHP(local_epochs=2))
+    sgd_ms = time_ms(torch, lambda: sgd(params, data, key), reps=3, warmup=1)
+    flat, unravel = ravel_params(params)
+    fit_fn = make_fitness_fn(task, data, unravel, 2)
+    mh = bwo(use_kernel=True)
+    with torch.no_grad():
+        init_ms = time_ms(torch, lambda: mh.init(key, flat, P, fit_fn), reps=5)
+        state = mh.init(key, flat, P, fit_fn)
+        gen_ms = time_ms(torch, lambda: mh.step(key, state, fit_fn), reps=5)
+        bits_ms = time_ms(torch, lambda: random.bits(key, (P, Dp)), reps=5)
+        sample_ms = time_ms(torch, lambda: bwo_ops.sample(
+            state["pop"], state["fit"], key, pm=0.4, procreate_frac=0.6),
+            reps=5)
+        fitness_ms = time_ms(torch, lambda: fit_fn(state["pop"]), reps=5)
+        split_ms = time_ms(torch, lambda: random.split(key, 5))
+    client_ms = sgd_ms + init_ms + 3 * gen_ms
+    print(f"  one client: local SGD {sgd_ms:.2f} ms, population seeding "
+          f"{init_ms:.2f} ms, 3 generations {3 * gen_ms:.2f} ms; "
+          f"x 10 clients = {10 * client_ms / 1e3:.3f} s")
+    print(f"  one generation {gen_ms:.2f} ms: two bit draws "
+          f"{2 * bits_ms:.2f} ms ({2 * bits_ms / gen_ms:.1%}), all sampling "
+          f"{sample_ms:.2f} ms ({sample_ms / gen_ms:.1%}), kernel "
+          f"{kernel_ms:.4f} ms ({kernel_ms / gen_ms:.2%}), fitness "
+          f"{fitness_ms:.2f} ms ({fitness_ms / gen_ms:.1%})")
+    print(f"  one key split (a threefry of ~175 small launches) "
+          f"{split_ms:.3f} ms")
+
+    # ------------------------------------------------- 4. the main path --
+    print("== 4. main path: FedBWO, paper CNN at full width, bwo_kernel")
+    # tau above any accuracy, so the run takes all three rounds: on this
+    # data the paper's tau = 0.70 stops it after round 2
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", max_rounds=3, tau=1.01)
+    exp = build_experiment(cfg)
+    bwo_kernel.launches = 0
+    t0 = time.perf_counter()
+    result = exp.run(verbose=True)
+    wall = time.perf_counter() - t0
+    launches = {"bwo_evolve": bwo_kernel.launches}
+    rounds = len(result.logs)
+    for log in result.logs:
+        print(f"  round {log.round}: round_time_s {log.round_time_s:.3f}  "
+              f"test_acc {log.test_acc:.4f}  test_loss {log.test_loss:.4f}  "
+              f"winner {log.info['best_client']}")
+    print(f"  {rounds} rounds in {wall:.2f} s; launches {launches}")
+    want_launches = cfg.n_clients * cfg.mh_generations * rounds
+    check(rounds == cfg.max_rounds, f"the main path ran {rounds} rounds")
+    check(launches["bwo_evolve"] == want_launches,
+          f"bwo_evolve launched {launches['bwo_evolve']} times, "
+          f"expected {want_launches}")
+    for log in result.logs:
+        check(all(math.isfinite(s) for s in log.info["scores"]),
+              f"non-finite score in round {log.round}: {log.info['scores']}")
+        check(math.isfinite(log.test_loss), "non-finite test loss")
+    model_bytes = exp.meter.model_bytes
+    check(model_bytes == 9_861_288, f"model_bytes {model_bytes}")
+    uplink = exp.meter.total_uplink
+    check(uplink == rounds * (cfg.n_clients * 4 + model_bytes),
+          f"uplink {uplink} != {rounds} x (40 + {model_bytes})")
+    check(all(t.is_cuda and bool(torch.isfinite(t).all())
+              for t in tree.leaves(result.server.global_params)),
+          "global params not finite on the card")
+    print(f"  uplink {uplink} bytes = {rounds} x {cfg.n_clients * 4 + model_bytes}")
+
+    # ---------------------------------------- 5. composed FedBWO round --
+    print("== 5. one round of the default (composed) FedBWO on the card")
+    before = bwo_kernel.launches
+    res = build_experiment(FLConfig(device="cuda", max_rounds=1)).run()
+    log = res.logs[0]
+    print(f"  round_time_s {log.round_time_s:.3f}  test_acc "
+          f"{log.test_acc:.4f}  winner {log.info['best_client']}")
+    check(bwo_kernel.launches == before, "the composed route launched the kernel")
+    check(all(math.isfinite(s) for s in log.info["scores"]),
+          "non-finite composed-route score")
+
+    # ------------------------- 6. card against the CPU route, small input --
+    print("== 6. kernel route on the card against the port's CPU route")
+    narrow = CNNConfig(conv1_filters=4, conv2_filters=8, dense_hidden=16)
+    small = dict(n_clients=3, n_train=90, n_test=30, mh_pop=3,
+                 mh_generations=2, local_epochs=1, max_rounds=2,
+                 bwo_kernel=True)
+    on_card = build_experiment(FLConfig(device="cuda", **small),
+                               task=cnn_task(narrow)).run()
+    on_cpu = build_experiment(FLConfig(device="cpu", **small),
+                              task=cnn_task(narrow)).run()
+    for a, b in zip(on_card.logs, on_cpu.logs):
+        diff = max(abs(x - y) for x, y in zip(a.info["scores"],
+                                               b.info["scores"]))
+        print(f"  round {a.round}: winner {a.info['best_client']} vs "
+              f"{b.info['best_client']}, max score diff {diff:.2e}, "
+              f"test loss {a.test_loss:.6f} vs {b.test_loss:.6f}")
+        check(a.info["best_client"] == b.info["best_client"],
+              "card and CPU routes chose different winners")
+        check(diff <= 1e-4 and abs(a.test_loss - b.test_loss) <= 1e-4,
+              "card and CPU routes disagree beyond 1e-4")
+
+    # --------------------------------------------------------- results --
+    kernels = [{
+        "name": "bwo_evolve", "route": "cuda",
+        "source": "src/repro_torch/csrc/bwo_evolve.cu",
+        "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43",
+        "launches": launches["bwo_evolve"], "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,208 @@
+"""Experiment facade: ``FLConfig`` -> ``build_experiment()`` -> ``run()``.
+
+    cfg = FLConfig(strategy="fedbwo", bwo_kernel=True)      # on the card
+    result = build_experiment(cfg).run(verbose=True)
+    print(result.summary())
+
+The port's counterpart of ``repro.core.api``, with two more fields:
+``device`` ("cuda" unless the caller asks for "cpu"; a missing card
+raises) and ``bwo_kernel``, which routes every BWO generation through the
+hand-written ``bwo_evolve`` kernel (the default stays the composed step,
+as in the reference).  ``build_experiment`` accepts ``task`` /
+``client_data`` / ``eval_data`` / ``hp`` overrides so one synthesized
+dataset (or a custom task) can serve many configs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional
+
+from repro_torch import random
+from repro_torch.core.client import ClientHP, Task
+from repro_torch.core.comm import fedavg_total, normalized_cost
+from repro_torch.core.knobs import (parse_audit, validate_engine,
+                                    validate_pipeline_blocks,
+                                    validate_rounds_per_dispatch,
+                                    validate_vectorize)
+from repro_torch.core.protocol import RoundLog, StopConditions, run_federated
+from repro_torch.core.server import Server, get_strategy
+from repro_torch.device import resolve_device
+from repro_torch.metaheuristics import REGISTRY
+
+TASKS = ("cnn", "mlp")
+PARTITIONS = ("iid", "dirichlet")
+
+
+def strategy_names() -> tuple:
+    """fedavg plus one fedX per ported meta-heuristic."""
+    return ("fedavg",) + tuple(sorted("fed" + k for k in REGISTRY))
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    """Everything needed to reproduce one federated run.
+
+    Defaults follow the paper's §IV-A setup (batch 10, lr 0.0025,
+    tau 0.70); knob vocabularies are validated once, at construction.
+    """
+    strategy: str = "fedbwo"
+    task: str = "cnn"               # "cnn" (paper) | "mlp" (FedAvg 2NN)
+    n_clients: int = 10
+    client_ratio: float = 1.0       # C — FedAvg participation ratio
+    partition: str = "iid"          # "iid" | "dirichlet"
+    dirichlet_alpha: float = 0.5
+    n_train: int = 1000
+    n_test: int = 300
+    batch_size: int = 10            # paper §IV-A
+    local_epochs: int = 2
+    lr: float = 0.0025              # paper §IV-A
+    mh_pop: int = 6
+    mh_generations: int = 3
+    engine: str = "auto"            # knobs.ENGINES; auto = sequential here
+    vectorize: str = "auto"         # knobs.VECTORIZE_MODES (batched engine)
+    rounds_per_dispatch: Any = 1    # resolved as on the sequential engine
+    pipeline_blocks: Any = "auto"   # resolved as on the sequential engine
+    # evaluate the global model every k-th round (the last round always)
+    eval_every: int = 1
+    max_rounds: int = 8
+    patience: int = 5               # paper: t = 5
+    tau: float = 0.70               # paper §IV-D
+    data_seed: int = 42
+    partition_seed: int = 1
+    server_seed: int = 7
+    device: str = "cuda"            # "cuda" | "cpu"; no card -> raises
+    # FedBWO: run each generation through the bwo_evolve kernel (the
+    # reference's get_strategy(..., use_pallas=True) route)
+    bwo_kernel: bool = False
+
+    def __post_init__(self):
+        validate_engine(self.engine)
+        validate_vectorize(self.vectorize)
+        validate_rounds_per_dispatch(self.rounds_per_dispatch)
+        validate_pipeline_blocks(self.pipeline_blocks)
+        if self.eval_every < 1:
+            raise ValueError(f"eval_every={self.eval_every} must be >= 1")
+        if self.task not in TASKS:
+            raise ValueError(f"task={self.task!r} not in {TASKS}")
+        if self.partition not in PARTITIONS:
+            raise ValueError(
+                f"partition={self.partition!r} not in {PARTITIONS}")
+        if self.strategy not in strategy_names():
+            raise ValueError(f"strategy={self.strategy!r} not in "
+                             f"{strategy_names()}")
+        if not 0.0 < self.client_ratio <= 1.0:
+            raise ValueError(
+                f"client_ratio={self.client_ratio} not in (0, 1]")
+
+    def client_hp(self) -> ClientHP:
+        return ClientHP(local_epochs=self.local_epochs, lr=self.lr,
+                        mh_pop=self.mh_pop,
+                        mh_generations=self.mh_generations)
+
+    def stop_conditions(self) -> StopConditions:
+        return StopConditions(max_rounds=self.max_rounds,
+                              patience=self.patience, tau=self.tau)
+
+
+def build_experiment(cfg: FLConfig, *, task: Optional[Task] = None,
+                     client_data: Optional[list] = None,
+                     eval_data: Any = None,
+                     hp: Optional[ClientHP] = None,
+                     audit: Any = "off") -> "Experiment":
+    """Materialize an :class:`Experiment` from a config on ``cfg.device``:
+    synthesize the dataset, partition and batch it across clients, and
+    construct the ``Server``.  Overrides given as tensors must already
+    lie on that device.  ``audit`` other than "off" raises: the static
+    auditor is not ported yet (ROADMAP.md, queue 1, item 11).
+    """
+    # local imports: repro_torch.data imports repro_torch.core.client
+    from repro_torch.data.loader import client_batches
+    from repro_torch.data.partition import partition_dirichlet, partition_iid
+    from repro_torch.data.synthetic import cnn_task, make_cifar_like, mlp_task
+
+    if parse_audit(audit) != "off":
+        raise NotImplementedError(
+            "the flcheck static auditor is not ported yet (ROADMAP.md, "
+            "queue 1, item 11); pass audit='off'")
+    device = resolve_device(cfg.device)
+    if task is None:
+        task = cnn_task() if cfg.task == "cnn" else mlp_task()
+    if client_data is None or eval_data is None:
+        train, test = make_cifar_like(random.PRNGKey(cfg.data_seed, device),
+                                      cfg.n_train, cfg.n_test)
+        if eval_data is None:
+            eval_data = test
+        if client_data is None:
+            pkey = random.PRNGKey(cfg.partition_seed, device)
+            if cfg.partition == "dirichlet":
+                parts = partition_dirichlet(pkey, train, cfg.n_clients,
+                                            alpha=cfg.dirichlet_alpha)
+            else:
+                parts = partition_iid(pkey, train, cfg.n_clients)
+            client_data = client_batches(parts, cfg.batch_size)
+    mh_kw = {"use_kernel": cfg.bwo_kernel} if cfg.strategy == "fedbwo" else {}
+    server = Server(task,
+                    get_strategy(cfg.strategy,
+                                 client_ratio=cfg.client_ratio, **mh_kw),
+                    hp if hp is not None else cfg.client_hp(),
+                    client_data, random.PRNGKey(cfg.server_seed, device),
+                    engine=cfg.engine,
+                    rounds_per_dispatch=cfg.rounds_per_dispatch,
+                    pipeline_blocks=cfg.pipeline_blocks)
+    return Experiment(cfg=cfg, server=server, eval_data=eval_data,
+                      stop=cfg.stop_conditions())
+
+
+@dataclasses.dataclass
+class Experiment:
+    """A wired-up federated run: ``.run()`` drives it to completion."""
+    cfg: FLConfig
+    server: Server
+    eval_data: Any
+    stop: StopConditions
+
+    @property
+    def meter(self):
+        return self.server.meter
+
+    def run(self, verbose: bool = False) -> "ExperimentResult":
+        logs = run_federated(self.server, self.eval_data, self.stop,
+                             verbose=verbose,
+                             eval_every=self.cfg.eval_every)
+        return ExperimentResult(cfg=self.cfg, server=self.server,
+                                logs=logs)
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    cfg: FLConfig
+    server: Server
+    logs: List[RoundLog]
+
+    def summary(self, fedavg_rounds: int = 30) -> dict:
+        """Headline numbers plus the full CommMeter ledger; the
+        normalized cost is computed against a ``fedavg_rounds``-round
+        full-participation FedAvg baseline (paper default: 30): Eq. 4 for
+        FedX runs, recorded uplink over the baseline's for FedAvg."""
+        meter = self.server.meter
+        if self.server.strategy.is_fedx:
+            cost = normalized_cost(meter, t_avg=fedavg_rounds)
+        else:
+            cost = meter.total_uplink / max(1, fedavg_total(
+                fedavg_rounds, 1.0, meter.n_clients, meter.model_bytes))
+        return {
+            "strategy": self.cfg.strategy,
+            "task": self.cfg.task,
+            "partition": self.cfg.partition,
+            "engine": self.server.engine,
+            "rounds_per_dispatch": self.server.rounds_per_dispatch,
+            "pipeline_blocks": self.server.pipeline_blocks,
+            "device": str(self.server.device),
+            "bwo_kernel": self.cfg.bwo_kernel,
+            "rounds": len(self.logs),
+            "final_acc": self.logs[-1].test_acc,
+            "final_loss": self.logs[-1].test_loss,
+            "comm": meter.summary(),
+            "block_timing": meter.timing_summary(),
+            f"normalized_cost_vs_fedavg{fedavg_rounds}": cost,
+        }

@@ -1,0 +1,77 @@
+"""One BWO generation step: rank parents, draw the random bits, apply the
+fused update — the kernel for a CUDA tensor, the plain version for a CPU
+tensor.
+
+The draws reproduce the reference's (``repro/kernels/bwo_evolve/ops.py``)
+key for key: the generation key splits five ways, and both bit planes are
+drawn at the 128-padded shape (P, Dp), since the threefry counter is the
+flat index and any other shape changes every bit.  Only the bits are
+padded; the population is read unpadded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random
+from repro_torch.kernels.bwo_evolve import ref as ref_lib
+from repro_torch.kernels.bwo_evolve.bwo_evolve import bwo_evolve_cuda
+
+
+def _as_i32_words(bits: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> the int32 view of the same
+    words, as the kernel reads them."""
+    return (bits - ((bits >> 31) << 32)).to(torch.int32)
+
+
+def sample(pop, fit, key, *, pm: float, procreate_frac: float):
+    """The generation's draws: (pop32, p1_idx, p2_idx, bits1, bits2, gate)."""
+    P, D = pop.shape
+    r_sel1, r_sel2, r_b1, r_b2, r_gate = random.split(key, 5)
+    n_par = max(2, int(P * procreate_frac))
+    order = torch.argsort(fit, stable=True)
+    p1_idx = order[random.randint(r_sel1, (P,), 0, n_par).long()].to(torch.int32)
+    p2_idx = order[random.randint(r_sel2, (P,), 0, n_par).long()].to(torch.int32)
+    Dp = -(-D // 128) * 128
+    bits1 = _as_i32_words(random.bits(r_b1, (P, Dp)))
+    bits2 = _as_i32_words(random.bits(r_b2, (P, Dp)))
+    gate = random.bernoulli(r_gate, pm, (P, 1)).to(torch.float32)
+    pop32 = pop.to(torch.float32).contiguous()
+    return pop32, p1_idx, p2_idx, bits1, bits2, gate
+
+
+def evolve(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *, pm_gene: float,
+           mut_scale: float) -> torch.Tensor:
+    """The fused update on drawn inputs: the kernel for CUDA tensors, the
+    plain version for CPU tensors (and nothing else)."""
+    if pop.device.type == "cuda":
+        return bwo_evolve_cuda(pop, p1_idx, p2_idx, bits1, bits2, row_gate,
+                               pm_gene=pm_gene, mut_scale=mut_scale)
+    if pop.device.type == "cpu":
+        return ref_lib.bwo_evolve_ref(pop, p1_idx, p2_idx, bits1, bits2,
+                                      row_gate, pm_gene=pm_gene,
+                                      mut_scale=mut_scale)
+    raise ValueError(f"bwo_evolve runs on cuda or cpu, not {pop.device}")
+
+
+def bwo_evolve(pop, fit, key, *, pm: float = 0.4, pm_gene: float = 0.1,
+               mut_scale: float = 0.05, procreate_frac: float = 0.6):
+    """One BWO generation: (P, D) population -> (P, D) children in pop's
+    dtype (the update runs in float32).  Selection/cannibalism is done by
+    the caller on child fitness."""
+    pop32, p1, p2, b1, b2, gate = sample(pop, fit, key, pm=pm,
+                                         procreate_frac=procreate_frac)
+    children = evolve(pop32, p1, p2, b1, b2, gate, pm_gene=pm_gene,
+                      mut_scale=mut_scale)
+    return children.to(pop.dtype)
+
+
+def bwo_evolve_reference(pop, fit, key, *, pm: float = 0.4,
+                         pm_gene: float = 0.1, mut_scale: float = 0.05,
+                         procreate_frac: float = 0.6):
+    """Same sampling path, plain PyTorch update on any device — the oracle
+    for the kernel."""
+    pop32, p1, p2, b1, b2, gate = sample(pop, fit, key, pm=pm,
+                                         procreate_frac=procreate_frac)
+    children = ref_lib.bwo_evolve_ref(pop32, p1, p2, b1, b2, gate,
+                                      pm_gene=pm_gene, mut_scale=mut_scale)
+    return children.to(pop.dtype)

@@ -1,0 +1,198 @@
+"""Counter-based random numbers that reproduce ``jax.random`` draw for draw.
+
+The port's counterpart of the ``jax.random`` calls on the FedBWO path:
+threefry2x32 (Salmon et al. 2011) with JAX's *partitionable* layout
+(``jax_threefry_partitionable=True``, the default since jax 0.5), in which
+element ``i`` of a draw of any shape hashes the 64-bit counter ``i`` — its
+high word and its low word — under the key, and 32-bit ``bits`` are the
+XOR of the two output words.  ``split`` hashes the counters ``0..n-1`` and
+keeps both words as the new keys.
+
+A key is a 2-word int64 tensor ``[k_hi, k_lo]`` on the caller's device;
+every word holds an unsigned 32-bit value, and the arithmetic here works
+in int64 and masks to 32 bits, so the same plain integer ops run on the
+CPU and on the card.  Draws are returned on the key's device.
+
+Each sampler mirrors the ``jax/_src/random.py`` function of the same name
+(jax 0.9.0): ``uniform`` builds floats from the top mantissa bits,
+``randint`` combines two bit draws, ``normal`` maps a uniform through
+``erfinv`` (the one place the port differs from XLA in the last bits),
+``permutation`` sorts by fresh 32-bit keys ``ceil(3 ln n / ln(2^32 - 1))``
+times, and ``choice`` without replacement takes a permutation's prefix.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> tuple:
+    return (int(shape),) if isinstance(shape, int) else tuple(shape)
+
+
+def _words(key: torch.Tensor):
+    """The key's two words as int64 scalars (0-dim tensors)."""
+    key = key.to(torch.int64) & MASK
+    if key.shape != (2,):
+        raise ValueError(f"a key is a (2,) tensor, got shape {tuple(key.shape)}")
+    return key[0], key[1]
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 hash (20 rounds) of counter words ``(x1, x2)`` under
+    key words ``(k1, k2)``; all int64 tensors holding 32-bit values,
+    broadcast together.  Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x1, x2
+
+
+def _hash_iota(key, n: int):
+    """Both output words for the counters 0..n-1 under ``key``."""
+    k1, k2 = _words(key)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    return threefry2x32(k1, k2, idx >> 32, idx & MASK)
+
+
+def PRNGKey(seed: int, device) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: the 64-bit seed split into two words."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def as_key(key, device) -> torch.Tensor:
+    """A key from anything array-like (a JAX key through ``np.asarray``,
+    a list of two words), as an int64 tensor on ``device``."""
+    t = torch.as_tensor(np.array(key), device=device)
+    return t.to(torch.int64) & MASK
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: a (num, 2) tensor of new keys."""
+    y1, y2 = _hash_iota(key, num)
+    return torch.stack([y1, y2], dim=1)
+
+
+def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: unsigned 32-bit values held
+    in an int64 tensor.  The counter is the flat row-major index, so the
+    same key gives other bits at another shape."""
+    shape = _shape(shape)
+    y1, y2 = _hash_iota(key, math.prod(shape))
+    return (y1 ^ y2).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: the top 23 bits become the
+    mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)."""
+    if dtype != torch.float32:
+        raise NotImplementedError(f"uniform is ported for float32, got {dtype}")
+    shape = _shape(shape)
+    b = bits(key, shape)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=dtype, device=key.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the
+    # float64 product of two float32 values is exact, so this rounds as
+    # the FMA does (barring a double-rounding tie)
+    scaled = (f.double() * (hi - lo).double() + lo.double()).to(dtype)
+    return torch.maximum(lo, scaled)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` (mode "low"): ``uniform < p`` in float32."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32: two bit draws, reduced modulo the
+    span in uint32 arithmetic (wrapping as JAX's does)."""
+    shape = _shape(shape)
+    minval, maxval = int(minval), int(maxval)
+    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
+        raise ValueError("randint is ported for int32 bounds")
+    k = split(key)
+    hi, lo = bits(k[0], shape), bits(k[1], shape)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    mult = ((2**16 % span) ** 2 & MASK) % span   # wraps to 0 for span > 2^16
+    off = ((hi % span) * mult & MASK) + lo % span
+    off = (off & MASK) % span
+    return (off + minval).to(torch.int32)
+
+
+# Giles' single-precision erfinv ("Approximating the erfinv function", GPU
+# Computing Gems, 2011), the polynomial XLA lowers float32 erf_inv to; the
+# two coefficient sets are for w < 5 and w >= 5, highest degree first.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0])
+    for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Shape = (),
+           dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2) * erfinv(u) with u uniform on
+    (nextafter(-1, 0), 1).  ``torch.log1p`` and XLA's differ in the last
+    bit, so a draw agrees with JAX's within 1e-6, not exactly."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, dtype, lo, 1.0)
+    return _erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=dtype,
+                                     device=key.device)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: stable sorts of ``arange(n)`` by
+    fresh 32-bit keys, ``ceil(3 ln n / ln(2^32 - 1))`` rounds (int64)."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.argsort(bits(sub, (n,)), stable=True)
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=False)``: the prefix of a
+    permutation (sampling with replacement is not on the ported path)."""
+    shape = _shape(shape)
+    draws = math.prod(shape)
+    if draws > n:
+        raise ValueError(f"cannot take {draws} of {n} without replacement")
+    return permutation(key, n)[:draws].reshape(shape)

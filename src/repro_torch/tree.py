@@ -1,0 +1,35 @@
+"""Nested-dict parameter trees, flattened in ``jax.tree_util`` order
+(dict keys sorted), so leaf order and ravel order match the reference."""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+    return [tree]
+
+
+def structure(tree):
+    """The tree with every leaf replaced by None (a treedef)."""
+    if isinstance(tree, dict):
+        return {k: structure(tree[k]) for k in sorted(tree)}
+    return None
+
+
+def unflatten(treedef, items) -> Any:
+    it = iter(items)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(treedef)
+
+
+def map(fn: Callable, tree, *rest):  # noqa: A001 — mirrors jax.tree.map
+    return unflatten(structure(tree),
+                     [fn(*xs) for xs in zip(leaves(tree),
+                                            *[leaves(r) for r in rest])])

@@ -36,3 +36,9 @@ def make_toy_data(rng, n: int, d: int = 8, classes: int = 3,
     x = jax.random.normal(rng, (n, d))
     y = (x @ w_true).argmax(-1).astype(jnp.int32)
     return {"x": x, "y": y}
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU "
+        "mode); skips where torch sees no CUDA device")

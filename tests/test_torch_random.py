@@ -1,0 +1,97 @@
+"""The port's threefry draws against ``jax.random``: exact for every
+sampler but ``normal``, which goes through erfinv (within 1e-6)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import random as R  # noqa: E402
+
+SEEDS = [0, 1, 42, 7, 2**31 - 1]
+SHAPES = [(), (1,), (7,), (3, 128), (6, 4097), (2, 3, 5), (4, 1, 33)]
+
+
+def tkey(jkey):
+    return R.as_key(np.asarray(jkey), "cpu")
+
+
+def np64(x):
+    return np.asarray(x).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_and_split(seed):
+    jk = jax.random.PRNGKey(seed)
+    tk = R.PRNGKey(seed, "cpu")
+    assert (np64(jk) == tk.numpy()).all()
+    for num in (2, 3, 7, 12):
+        assert (np64(jax.random.split(jk, num)) == R.split(tk, num).numpy()).all()
+    # a split key splits again the same way (the round schedule's chain)
+    jk2 = jax.random.split(jk, 4)[3]
+    assert (np64(jax.random.split(jk2)) ==
+            R.split(R.split(tk, 4)[3]).numpy()).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bits_uniform_bernoulli(seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed, "cpu")
+    assert (np64(jax.random.bits(jk, shape, jnp.uint32))
+            == R.bits(tk, shape).numpy()).all()
+    got = R.uniform(tk, shape).numpy()
+    assert got.dtype == np.float32
+    assert (np.asarray(jax.random.uniform(jk, shape)) == got).all()
+    lo_hi = np.asarray(jax.random.uniform(jk, shape, minval=-2.0, maxval=3.0))
+    assert (lo_hi == R.uniform(tk, shape, minval=-2.0, maxval=3.0).numpy()).all()
+    for p in (0.1, 0.4, 0.8):
+        assert (np.asarray(jax.random.bernoulli(jk, p, shape))
+                == R.bernoulli(tk, p, shape).numpy()).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("bounds", [(0, 10), (0, 3), (-5, 1000), (3, 3),
+                                    (0, 70000), (0, 2**31 - 1)])
+def test_randint(seed, bounds):
+    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed, "cpu")
+    for shape in [(), (6,), (3, 5)]:
+        want = np.asarray(jax.random.randint(jk, shape, *bounds))
+        got = R.randint(tk, shape, *bounds).numpy()
+        assert got.dtype == want.dtype == np.int32
+        assert (want == got).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", [(7,), (3, 128), (6, 4097), (50, 32, 3)])
+def test_normal_within_erfinv_rounding(seed, shape):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    got = R.normal(R.PRNGKey(seed, "cpu"), shape).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 10, 90, 1000, 70000])
+def test_permutation(seed, n):
+    want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+    got = R.permutation(R.PRNGKey(seed, "cpu"), n).numpy()
+    assert (want == got).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n,m", [(10, 3), (10, 10), (5, 1), (30, 7), (3, 2)])
+def test_choice(seed, n, m):
+    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed, "cpu")
+    assert (np.asarray(jax.random.choice(jk, n, (m,), replace=False))
+            == R.choice(tk, n, (m,)).numpy()).all()
+
+
+def test_key_from_jax_array_is_the_same_key():
+    jk = jax.random.split(jax.random.PRNGKey(3), 5)[2]
+    assert (np64(jax.random.bits(jk, (9,)))
+            == R.bits(tkey(jk), (9,)).numpy()).all()
+    with pytest.raises(ValueError):
+        R.bits(torch.zeros(3, dtype=torch.int64), (2,))
