@@ -7,19 +7,30 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: Python, torch and CUDA versions, the card's name and
    power limit (``nvidia-smi``);
-2. build: ``nvcc`` compiles every kernel of the main path from
-   ``src/repro_torch/csrc`` for sm_90a (one process per source, all
-   started together);
-3. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and two small ones, in float32 and bfloat16, with
-   the kernel's and the plain version's times and the bound;
-4. the main path at full width through the user's entry points:
+2. build: ``nvcc`` compiles every kernel from ``src/repro_torch/csrc`` for
+   sm_90a (one process per source, all started together);
+3. ``bwo_evolve`` against its plain PyTorch version on the card, at the FL
+   path's shapes and two small ones, in float32 and bfloat16, with the
+   kernel's and the plain version's times and the bound;
+4. the FL path at full width through the user's entry points:
    ``FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
    device="cuda", max_rounds=3)`` -> ``build_experiment`` -> ``run``, with
-   the launch counters set to 0 just before and read just after;
+   every launch counter set to 0 just before and read just after;
 5. one round of the default (composed) FedBWO on the card;
 6. the kernel route on the card against the port's CPU route (the route
-   the tests hold against the JAX reference) on a narrow CNN.
+   the tests hold against the JAX reference) on a narrow CNN;
+7. ``flash_attention`` against its plain PyTorch version on the card, at
+   OLMo-1B's prefill and decode shapes, the reference's test cases in
+   float32 and bfloat16, a windowed and a mixed-type (float32 queries,
+   bf16 cache) shape, with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times and the bound;
+8. the serving path at full width and depth: ``serve(get_arch("olmo-1b"),
+   batch=4, prompt_len=1024, gen=32, temperature=1.0, device="cuda")``,
+   with every launch counter set to 0 just before and read just after;
+   the same call again (warm); then a prefill alone and one decode step
+   split into the model and the sampling;
+9. serving olmo-1b ``.reduced()`` on the card against the port's CPU
+   route, greedy.
 
 It then prints one JSON line describing every ported kernel, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -40,18 +51,48 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# The card's memory rate and float32 rate (non-tensor-core), by the name
-# nvidia-smi gives: NVIDIA's data sheets, dense rates at the full power
-# limit.  Bounds are stated against these.
-CARDS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# The card's memory rate, float32 rate (non-tensor-core) and bf16 dense
+# tensor-core rate, by the name nvidia-smi gives: NVIDIA's data sheets,
+# dense rates at the full power limit (None: not recorded here).  Bounds
+# are stated against these.
+CARDS = {"H100 PCIe": (2.0e12, 51e12, None), "H100 NVL": (3.9e12, 60e12, None),
+         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
 
 FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
+
+# flash_attention checks: B, Sq, Sk, H, KV, hd, causal, window, q_offset,
+# kv_len, q dtype, k/v dtype.  The tolerance goes by q's dtype: f32, sums in
+# another order than the plain version's cuBLAS products; bf16, both round
+# one fp32 result to bf16 (a step of 2^-8 relative).
+F32, BF16 = "float32", "bfloat16"
+OLMO_PREFILL = (4, 1024, 1024, 16, 16, 128, True, None, 0, None, BF16, BF16)
+OLMO_DECODE = (4, 1, 1056, 16, 16, 128, False, None, 0, 1040, BF16, BF16)
+TEST_CASES = [(2, 256, 256, 4, 2, 64, True, None), (1, 512, 512, 4, 4, 128, True, 128),
+              (2, 128, 128, 8, 1, 32, False, None), (1, 300, 300, 2, 2, 80, True, None),
+              (1, 256, 256, 4, 4, 128, True, 64)]
+FA_SHAPES = ([OLMO_PREFILL, OLMO_DECODE]
+             + [c + (0, None, dt, dt) for c in TEST_CASES for dt in (F32, BF16)]
+             + [(4, 1, 1056, 16, 16, 128, True, 128, 1039, None, BF16, BF16),
+                (2, 1, 24, 4, 4, 64, False, None, 0, 17, F32, BF16)])
+FA_TOL = {F32: 2e-5, BF16: 3e-2}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def valid_pairs(Sq, Sk, causal, window, q_offset, kv_len):
+    """(query, key) pairs the attention mask keeps, per batch row and head."""
+    import torch
+    q = q_offset + torch.arange(Sq)[:, None]
+    k = torch.arange(Sk)[None, :]
+    keep = k < (Sk if kv_len is None else kv_len)
+    if causal:
+        keep = keep & (k <= q)
+    if window is not None:
+        keep = keep & (k > q - window)
+    return int(keep.sum()), int(keep.any(0).sum())
 
 
 def card_rates(name):
@@ -61,13 +102,16 @@ def card_rates(name):
     raise RuntimeError(f"no memory/compute rates recorded for {name!r}")
 
 
-def time_ms(torch, fn, reps=20, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+def time_ms(torch, fn, reps=20, warmup=3, flush=None):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up;
+    ``flush`` runs before each, outside the timing."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -76,6 +120,180 @@ def time_ms(torch, fn, reps=20, warmup=3):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def flash_phase(torch, mem_rate, bf16_rate):
+    """Phase 7.  Returns the kernel's entry of the kernels line (all but
+    its launches) and its times at OLMo-1B's prefill and decode shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    print("== 7. flash_attention against its plain version on the card")
+    dtypes = {F32: torch.float32, BF16: torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    inputs, max_err = {}, 0.0
+    for shape in FA_SHAPES:
+        B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len, qdt, kvdt = shape
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[qdt])
+        k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
+                .to(dtypes[kvdt]) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FA_TOL[qdt]
+        ok = (got.dtype == q.dtype and got.shape == q.shape
+              and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+        print(f"  B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+              f"window={window} q_offset={q_offset} kv_len={kv_len} q {qdt} "
+              f"kv {kvdt}: max_abs_err {err:.3e} (tol {tol}) "
+              f"{'ok' if ok else 'FAILED'}")
+        check(ok and math.isfinite(err), f"flash_attention disagrees at {shape}")
+        max_err = max(max_err, err)
+        inputs[shape] = (q, k, v, kw)
+
+    # times at the OLMo-1B shapes, each launch with a cold L2 (as a layer
+    # finds it after the other 15), against the bound and two yardsticks
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    times, entry = {}, None
+    for label, shape in (("prefill", OLMO_PREFILL), ("decode", OLMO_DECODE)):
+        B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = shape[:10]
+        q, k, v, kw = inputs[shape]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if kv_len is None else (
+            torch.arange(Sk, device="cuda") < kv_len)[None, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal)
+
+        lib_err = (sdpa().transpose(1, 2).float()
+                   - fa_ops.flash_attention(q, k, v, **kw).float()).abs().max().item()
+        ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
+                     flush=flush)
+        plain_ms = time_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
+                           reps=5, flush=flush)
+        lib_ms = time_ms(torch, sdpa, flush=flush)
+        pairs, keys = valid_pairs(Sq, Sk, causal, window, q_offset, kv_len)
+        nbytes = (2 * B * Sq * H * hd + 2 * B * keys * KV * hd) * q.element_size()
+        flops = 4 * B * H * hd * pairs
+        bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"  {label} {shape[:10]}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP; kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (max diff to the "
+              f"kernel {lib_err:.2e})  bound {bound_ms:.4f} ms ({bound_by}); "
+              f"kernel at {bound_ms / ms:.1%} of bound, "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
+        times[label] = ms
+        if entry is None:               # the kernels line carries the prefill
+            entry = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+    del scratch, inputs
+    torch.cuda.empty_cache()
+    return entry, times
+
+
+def serve_phase(torch, counters, decode_kernel_ms):
+    """Phase 8.  Returns flash_attention's launches on the serving path."""
+    from repro_torch import random
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import build_model
+    print("== 8. serving OLMo-1B at full width and depth")
+    cfg = get_arch("olmo-1b")
+    check(cfg.num_params() == 1_176_764_416, f"olmo-1b has {cfg.num_params()}")
+    B, P, G = 4, 1024, 32
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
+                device="cuda")
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.num_layers * (1 + (G - 1))
+    print(f"  {cfg.num_params():,} parameters, {cfg.param_dtype}; launches "
+          f"{launches} (expected flash_attention {want})")
+    print(f"  init_s {res.init_s:.3f}  prefill_ms {res.prefill_ms:.3f}  "
+          f"decode_ms_per_step {res.decode_ms_per_step:.3f}  tokens_per_s "
+          f"{res.tokens_per_s:.1f}  max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  sample: {res.tokens[0, :16].tolist()}")
+    check(launches["flash_attention"] == want,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected {want}")
+    check(launches["bwo_evolve"] == 0, "the serving path ran bwo_evolve")
+    toks = res.tokens
+    check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"tokens out of range or misshapen: {tuple(toks.shape)}")
+    check(res.logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(res.logits).all()), "non-finite logits")
+    del res
+    # the same serve() again in this process: its times without the first
+    # call's set-up (library load, cuBLAS handles, allocator growth)
+    warm = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
+                 device="cuda")
+    print(f"  again (warm): init_s {warm.init_s:.3f}  prefill_ms "
+          f"{warm.prefill_ms:.3f}  decode_ms_per_step "
+          f"{warm.decode_ms_per_step:.3f}  tokens_per_s {warm.tokens_per_s:.1f}")
+    del warm
+
+    # one decode step at the last position, split into the model and the
+    # sampling, and a prefill alone (weights drawn again)
+    dev = torch.device("cuda")
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, dev))
+    prompts = random.randint(random.PRNGKey(1, dev), (B, P), 0, cfg.vocab_size)
+    prefill = make_prefill_step(model, P + G)
+    prefill_ms = time_ms(torch, lambda: prefill(params, {"tokens": prompts}),
+                         reps=3, warmup=1)
+    logits, cache = prefill(params, {"tokens": prompts})
+    step = make_serve_step(model)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    model_ms = time_ms(torch, lambda: step(params, tok, cache, P + G - 2),
+                       reps=10)
+    key = random.PRNGKey(1, dev)
+
+    def sample():
+        _, k = random.split(key)
+        return random.categorical(k, logits)
+
+    sample_ms = time_ms(torch, sample, reps=10)
+    attn_ms = cfg.num_layers * decode_kernel_ms
+    print(f"  prefill alone {prefill_ms:.3f} ms; one decode step: model "
+          f"{model_ms:.3f} ms (of which the attention kernel, {cfg.num_layers} x "
+          f"{decode_kernel_ms:.4f} ms cold = {attn_ms:.3f} ms, "
+          f"{attn_ms / model_ms:.1%}), sampling (key split + categorical "
+          f"over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def serve_card_vs_cpu(torch):
+    """Phase 9: greedy serving of olmo-1b reduced (float32 weights, bf16
+    cache) on the card against the CPU route.  Logits reach ~200 and are
+    read through the bf16 cache, where an element that rounds the other
+    way moves a logit by up to ~1e-2: tolerance 1e-2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    print("== 9. serving olmo-1b reduced on the card against the CPU route")
+    cfg = get_arch("olmo-1b").reduced()
+    for window in (None, 6):
+        kw = dict(batch=2, prompt_len=16, gen=8, temperature=0.0, window=window)
+        on_card, on_cpu = serve(cfg, device="cuda", **kw), serve(cfg, device="cpu", **kw)
+        same = bool((on_card.tokens.cpu() == on_cpu.tokens).all())
+        diff = (on_card.logits.cpu() - on_cpu.logits).abs().max().item()
+        print(f"  window {window}: tokens {'equal' if same else 'DIFFER'}, "
+              f"last logits max diff {diff:.2e} (tol 1e-2, |logits| up to "
+              f"{on_cpu.logits.abs().max().item():.1f})")
+        check(same, "card and CPU routes served different tokens")
+        check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
 
 
 def main() -> int:
@@ -89,6 +307,8 @@ def main() -> int:
     from repro_torch.data.synthetic import cnn_task
     from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
     from repro_torch.kernels.bwo_evolve import ops as bwo_ops, ref as bwo_ref
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    counters = (bwo_kernel, fa_kernel)
 
     # ---------------------------------------------------- 1. environment --
     print("== 1. environment")
@@ -99,14 +319,16 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi)
     name = torch.cuda.get_device_name(0)
-    mem_rate, f32_rate = card_rates(name)
+    mem_rate, f32_rate, bf16_rate = card_rates(name)
+    check(bf16_rate is not None, f"no bf16 tensor-core rate recorded for "
+          f"{name!r}: the attention bound needs one")
     print(f"device {name}  count {torch.cuda.device_count()}  "
           f"rates used for bounds: {mem_rate / 1e12} TB/s, "
-          f"{f32_rate / 1e12} TFLOP/s fp32")
+          f"{f32_rate / 1e12} TFLOP/s fp32, {bf16_rate / 1e12} TFLOP/s bf16")
 
     # ---------------------------------------------------------- 2. build --
     print("== 2. build")
-    builds = {"bwo_evolve": bwo_kernel.build}
+    builds = {"bwo_evolve": bwo_kernel.build, "flash_attention": fa_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(fn) for k, fn in builds.items()}
@@ -206,11 +428,13 @@ def main() -> int:
     cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
                    device="cuda", max_rounds=3, tau=1.01)
     exp = build_experiment(cfg)
-    bwo_kernel.launches = 0
+    for k in counters:
+        k.launches = 0
     t0 = time.perf_counter()
     result = exp.run(verbose=True)
     wall = time.perf_counter() - t0
-    launches = {"bwo_evolve": bwo_kernel.launches}
+    launches = {"bwo_evolve": bwo_kernel.launches,
+                "flash_attention": fa_kernel.launches}
     rounds = len(result.logs)
     for log in result.logs:
         print(f"  round {log.round}: round_time_s {log.round_time_s:.3f}  "
@@ -222,6 +446,7 @@ def main() -> int:
     check(launches["bwo_evolve"] == want_launches,
           f"bwo_evolve launched {launches['bwo_evolve']} times, "
           f"expected {want_launches}")
+    check(launches["flash_attention"] == 0, "the FL path ran attention")
     for log in result.logs:
         check(all(math.isfinite(s) for s in log.info["scores"]),
               f"non-finite score in round {log.round}: {log.info['scores']}")
@@ -268,6 +493,10 @@ def main() -> int:
         check(diff <= 1e-4 and abs(a.test_loss - b.test_loss) <= 1e-4,
               "card and CPU routes disagree beyond 1e-4")
 
+    fa, fa_times = flash_phase(torch, mem_rate, bf16_rate)
+    serve_launches = serve_phase(torch, counters, fa_times["decode"])
+    serve_card_vs_cpu(torch)
+
     # --------------------------------------------------------- results --
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
@@ -275,7 +504,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43",
         "launches": launches["bwo_evolve"], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "launches": serve_launches, **fa}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

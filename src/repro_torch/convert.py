@@ -18,13 +18,31 @@ import torch
 from repro_torch import tree
 
 
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart: carry the
+        # bits across as int16 and reinterpret them
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes            # numpy's bfloat16, as JAX's arrays give
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(tree_of_numpy, device) -> dict:
-    return tree.map(lambda a: torch.as_tensor(np.array(a), device=device),
-                    tree_of_numpy)
+    """A nested dict of arrays (float32, bfloat16, ints) as tensors on
+    ``device``, bit for bit."""
+    return tree.map(lambda a: _to_tensor(a, device), tree_of_numpy)
 
 
 def params_to_numpy(params) -> dict:
-    return tree.map(lambda t: t.detach().cpu().numpy(), params)
+    return tree.map(_to_numpy, params)
 
 
 def ravel_params(params) -> Tuple[torch.Tensor, Callable]:

@@ -3,11 +3,8 @@
 Replaces ``repro/kernels/bwo_evolve/bwo_evolve.py::bwo_evolve_pallas``;
 the source, with its bound and design, is ``repro_torch/csrc/bwo_evolve.cu``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point and loaded with ``ctypes``.  The build runs at
-first use (never at import), into ``build/kernels/`` at the root of the
-checkout, under a name keyed by the source and the flags, so an edited
-source builds anew.
+The kernel is compiled with ``nvcc`` at first use (never at import) by
+``repro_torch.kernels.nvcc`` and loaded with ``ctypes``.
 
 ``launches`` counts every launch of the kernel: a run can show that its
 main path went through it.
@@ -15,60 +12,22 @@ main path went through it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "bwo_evolve.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import nvcc
+
+SOURCE = nvcc.SOURCE_DIR / "bwo_evolve.cu"
 
 launches = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    if nvcc is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the bwo_evolve kernel is built "
-                           "with the CUDA toolkit on the machine with the card")
-    return nvcc
-
-
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libbwo_evolve-{tag}.so"
-
-
 def build() -> Path:
     """Compile the kernel unless this source's library is already built;
     returns the library's path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return nvcc.build(SOURCE)
 
 
 def _load():

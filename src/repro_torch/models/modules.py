@@ -1,7 +1,9 @@
 """Param-dict module helpers: ``*_init(key, ...) -> params`` and
 ``*_apply(params, x) -> y`` on plain tensors, in the reference's layouts
-(dense ``w`` (in, out); conv weights HWIO; activations NHWC).  Only the
-pieces the paper CNN uses are ported."""
+(dense ``w`` (in, out); conv weights HWIO; activations NHWC; attention
+activations (B, S, H, hd)).  The pieces the paper CNN and the dense
+transformer use are ported.  The reference's ``tp_weight`` (a sharding
+constraint, an identity without a mesh) is not."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,6 +33,87 @@ def dense_apply(p, x):
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ---------------------------------------------------------------- norms --
+def norm_init(kind: str, dim: int, dtype=torch.bfloat16, *, device):
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+                "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm_np":          # OLMo: non-parametric LN
+        return {}
+    raise ValueError(kind)
+
+
+def norm_apply(kind: str, p, x, eps: float = 1e-5):
+    """Normalise over the last axis in float32; the result in x's dtype.
+    The variance is the population variance, as ``jnp.var``'s."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------ embedding --
+def embedding_init(key, vocab: int, dim: int, dtype=torch.bfloat16):
+    return {"table": _normal(key, (vocab, dim), 1.0, dtype)}
+
+
+def embedding_apply(p, ids):
+    return p["table"][ids]
+
+
+def embedding_attend(p, x):
+    """Tied-embedding logits."""
+    return x @ p["table"].T
+
+
+# ----------------------------------------------------------------- rope --
+def rope_freqs(head_dim: int, theta: float, device):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """Split-halves RoPE.  x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    angles = angles[..., None, :]                            # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ ffn --
+def ffn_init(key, kind: str, d_model: int, d_ff: int, dtype=torch.bfloat16):
+    r = random.split(key, 3)
+    if kind == "swiglu":
+        return {"wi": dense_init(r[0], d_model, d_ff, dtype=dtype),
+                "wg": dense_init(r[1], d_model, d_ff, dtype=dtype),
+                "wo": dense_init(r[2], d_ff, d_model, dtype=dtype)}
+    if kind == "gelu":
+        return {"wi": dense_init(r[0], d_model, d_ff, dtype=dtype),
+                "wo": dense_init(r[1], d_ff, d_model, dtype=dtype)}
+    raise ValueError(kind)
+
+
+def ffn_apply(kind: str, p, x):
+    if kind == "swiglu":
+        h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
+    else:                               # jax.nn.gelu's tanh approximation
+        h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
+    return dense_apply(p["wo"], h)
 
 
 # ------------------------------------------------------------ conv (cnn) --

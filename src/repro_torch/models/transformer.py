@@ -1,0 +1,159 @@
+"""The decoder stack: the port of ``repro/models/transformer.py`` for
+attention-only block patterns with a dense FFN (OLMo, Granite, Qwen1.5).
+
+Layers are grouped by the arch's repeating ``block_pattern`` and the
+group params are *stacked* along a leading axis (``num_groups``), as in the
+reference, so a parameter tree carries across as a copy; the reference's
+``lax.scan`` over that axis is a loop here.  MoE, MLA, Mamba, xLSTM,
+encoder-decoder, vision prefixes, cross-attention and learned positions
+are not ported yet and raise in ``build_model`` (ROADMAP queue 1, item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import random, tree
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import modules as nn
+
+
+def _unsupported(cfg: ArchConfig) -> Optional[str]:
+    """What of ``cfg`` the port lacks, or None."""
+    kinds = sorted(set(cfg.block_pattern) - {"attn"})
+    if kinds:
+        return f"{'/'.join(kinds)} blocks"
+    for what, present in (("MoE", cfg.moe is not None),
+                          ("MLA", cfg.mla is not None),
+                          ("an encoder", cfg.encoder_layers > 0),
+                          ("cross-attention", cfg.cross_attention),
+                          ("a vision prefix", cfg.vision_tokens > 0),
+                          ("learned positions", cfg.pos_emb == "learned")):
+        if present:
+            return what
+    return None
+
+
+# ---------------------------------------------------------------- init --
+def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
+    r = random.split(key, 5)
+    dev = key.device
+    p: Dict[str, Any] = {
+        "norm1": nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
+                              device=dev),
+        "mixer": attn.gqa_init(r[0], cfg),
+    }
+    if cfg.ffn != "none":
+        p["norm2"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                  device=dev)
+        p["ffn"] = nn.ffn_init(r[2], cfg.ffn, cfg.d_model, cfg.d_ff,
+                               cfg.param_dtype)
+    return p
+
+
+def _apply_sublayer(p, x, *, cfg: ArchConfig, mode: str, positions,
+                    cache_entry, cache_pos, window):
+    h = nn.norm_apply(cfg.norm, p["norm1"], x)
+    y, new_cache = attn.gqa_apply(p["mixer"], h, cfg=cfg, mode=mode,
+                                  positions=positions, cache=cache_entry,
+                                  cache_pos=cache_pos, window=window)
+    x = x + y
+    if "ffn" in p:
+        h = nn.norm_apply(cfg.norm, p["norm2"], x)
+        x = x + nn.ffn_apply(cfg.ffn, p["ffn"], h)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------- model --
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    max_seq: int
+
+    # ---------------- params ----------------
+    def init(self, key) -> Dict[str, Any]:
+        """The reference's key schedule, so the same seed gives the same
+        weights: split(key, 8); the groups from split(r[3], num_groups),
+        each split per sublayer."""
+        cfg = self.cfg
+        r = random.split(key, 8)
+        params: Dict[str, Any] = {
+            "embed": nn.embedding_init(r[0], cfg.vocab_size, cfg.d_model,
+                                       cfg.param_dtype),
+            "final_norm": nn.norm_init(cfg.norm, cfg.d_model,
+                                       cfg.param_dtype, device=key.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = nn.dense_init(r[1], cfg.d_model,
+                                              cfg.vocab_size,
+                                              dtype=cfg.param_dtype)
+
+        def init_group(key_g):
+            rs = random.split(key_g, cfg.group_size)
+            return {f"sub{i}": _init_sublayer(rs[i], cfg, i)
+                    for i in range(cfg.group_size)}
+
+        groups = [init_group(kg) for kg in random.split(r[3], cfg.num_groups)]
+        params["groups"] = tree.map(lambda *xs: torch.stack(xs), *groups)
+        return params
+
+    # ---------------- cache ----------------
+    def cache_init(self, batch: int, max_len: int, quantized: bool = False,
+                   *, device) -> Dict[str, Any]:
+        cfg = self.cfg
+        one_group = {f"sub{i}": attn.gqa_cache_init(cfg, batch, max_len,
+                                                    quantized=quantized,
+                                                    device=device)
+                     for i in range(cfg.group_size)}
+        return tree.map(lambda a: a.new_zeros((cfg.num_groups, *a.shape)),
+                        one_group)
+
+    # ---------------- main apply ----------------
+    def apply(self, params, batch: Dict[str, Any], *, mode: str,
+              cache=None, cache_pos=None, window: Optional[int] = None):
+        """Returns (logits, new_cache, aux_loss); logits in float32 for
+        every position.  ``cache_pos`` (decode) is an int or a (B,) tensor.
+        The cache is written in place (see ``attention.gqa_apply``)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        dev = tokens.device
+        x = nn.embedding_apply(params["embed"], tokens)
+
+        if mode == "decode" and isinstance(cache_pos, torch.Tensor):
+            positions = cache_pos.expand(B)[:, None]
+        elif mode == "decode":          # a fill on the device, no host copy
+            positions = torch.full((B, 1), cache_pos, device=dev)
+        else:
+            positions = torch.arange(S, device=dev)[None]
+        x = x.to(cfg.param_dtype)
+
+        for g in range(cfg.num_groups):
+            gparams = tree.map(lambda a: a[g], params["groups"])
+            gcache = None if cache is None else tree.map(lambda a: a[g], cache)
+            for i in range(cfg.group_size):
+                x, _ = _apply_sublayer(
+                    gparams[f"sub{i}"], x, cfg=cfg, mode=mode,
+                    positions=positions,
+                    cache_entry=None if gcache is None else gcache[f"sub{i}"],
+                    cache_pos=cache_pos, window=window)
+
+        x = nn.norm_apply(cfg.norm, params["final_norm"], x)
+        if cfg.tie_embeddings:
+            logits = nn.embedding_attend(params["embed"], x)
+        else:
+            logits = nn.dense_apply(params["lm_head"], x)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        return logits.float(), cache, aux
+
+
+def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
+    missing = _unsupported(cfg)
+    if missing is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {missing} not ported yet (ROADMAP queue 1, "
+            f"item 12); the port serves attention-only dense models")
+    return Model(cfg=cfg, max_seq=max_seq)

@@ -18,7 +18,8 @@ Each sampler mirrors the ``jax/_src/random.py`` function of the same name
 ``randint`` combines two bit draws, ``normal`` maps a uniform through
 ``erfinv`` (the one place the port differs from XLA in the last bits),
 ``permutation`` sorts by fresh 32-bit keys ``ceil(3 ln n / ln(2^32 - 1))``
-times, and ``choice`` without replacement takes a permutation's prefix.
+times, ``choice`` without replacement takes a permutation's prefix, and
+``categorical`` is the Gumbel-max trick over ``gumbel`` (mode "low").
 """
 from __future__ import annotations
 
@@ -196,3 +197,21 @@ def choice(key: torch.Tensor, n: int, shape: Shape = ()) -> torch.Tensor:
     if draws > n:
         raise ValueError(f"cannot take {draws} of {n} without replacement")
     return permutation(key, n)[:draws].reshape(shape)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = (),
+           dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default mode "low":
+    ``-log(-log(u))`` with u uniform on [tiny, 1).  ``torch.log`` and
+    XLA's may differ in the last bit."""
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(uniform(key, shape, dtype, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` with replacement and
+    the default shape: the argmax of logits plus Gumbel noise drawn at the
+    logits' shape (int64 indices)."""
+    return torch.argmax(gumbel(key, logits.shape, logits.dtype) + logits,
+                        dim=axis)

@@ -38,14 +38,15 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert bad == []
 
 
-def test_kernel_module_imports_without_nvcc():
+@pytest.mark.parametrize("kernel", ["bwo_evolve", "flash_attention"])
+def test_kernel_module_imports_without_nvcc(kernel):
     """The build is lazy: importing the ops module compiles nothing and
     needs no CUDA toolkit."""
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME=str(ROOT / "no-cuda-here"),
                PYTHONPATH=str(ROOT / "src"))
-    code = ("import repro_torch.kernels.bwo_evolve.ops as ops, sys\n"
-            "from repro_torch.kernels.bwo_evolve import bwo_evolve as k\n"
+    code = (f"import repro_torch.kernels.{kernel}.ops as ops, sys\n"
+            f"from repro_torch.kernels.{kernel} import {kernel} as k\n"
             "assert k._lib is None and k.launches == 0\n"
             "assert 'jax' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -14,9 +14,34 @@ torch = pytest.importorskip("torch")
 from repro_torch import random as R  # noqa: E402
 from repro_torch.kernels.bwo_evolve import bwo_evolve as kernel_mod  # noqa: E402
 from repro_torch.kernels.bwo_evolve import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as fa_kernel, ops as fa_ops, ref as fa_ref)
 
 GRID = [(4, 128), (8, 100), (16, 1000), (6, 4097)]
 DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+# B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len: the reference's
+# kernel sweep (tests/test_kernels.py), decode against a cache (scalar and
+# per-row lengths, windowed), chunked prefill, and the OLMo-1B shapes
+FA_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, 0, None),
+    (1, 512, 512, 4, 4, 128, True, 128, 0, None),
+    (2, 128, 128, 8, 1, 32, False, None, 0, None),
+    (1, 300, 300, 2, 2, 80, True, None, 0, None),
+    (1, 256, 256, 4, 4, 128, True, 64, 0, None),
+    (3, 1, 40, 4, 2, 64, False, None, 0, 23),
+    (3, 1, 40, 4, 2, 64, False, None, 0, [23, 40, 1]),
+    (2, 1, 100, 4, 4, 128, True, 16, 70, None),
+    (2, 24, 90, 4, 2, 80, True, None, 60, 84),
+    (4, 1024, 1024, 16, 16, 128, True, None, 0, None),
+    (4, 1, 1056, 16, 16, 128, False, None, 0, 1040),
+]
+# f32: sums in another order than the plain version's cuBLAS products;
+# bf16: both round the same fp32 result to bf16, which may differ by one
+# bf16 step (2^-8 relative)
+FA_DTYPES = {"float32": (torch.float32, torch.float32, 2e-5),
+             "bfloat16": (torch.bfloat16, torch.bfloat16, 3e-2),
+             "float32-bf16-cache": (torch.float32, torch.bfloat16, 2e-5)}
 
 
 @pytest.mark.cuda
@@ -35,3 +60,51 @@ def test_cuda_kernel_matches_plain_version(P, D, dtype):
     assert kernel_mod.launches == before + 1
     want = ops.bwo_evolve_reference(pop, fit, key)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _qkv(B, Sq, Sk, H, KV, hd, qdt, kvdt, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g).to("cuda", qdt)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to("cuda", kvdt)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to("cuda", kvdt)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,q_offset,kv_len",
+                         FA_CASES)
+@pytest.mark.parametrize("dtype", list(FA_DTYPES))
+def test_flash_attention_kernel_matches_plain_version(
+        B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    qdt, kvdt, tol = FA_DTYPES[dtype]
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, qdt, kvdt, Sq * 1000 + Sk + hd)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = fa_kernel.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1
+    assert got.dtype == qdt and got.shape == q.shape
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_reads_strided_views(dtype):
+    """A window sliced out of a cache, and rows whose stride rules out
+    16-byte loads: the kernel reads both through their strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    qdt, kvdt, tol = FA_DTYPES[dtype]
+    q, k, v = _qkv(2, 5, 80, 4, 2, 64, qdt, kvdt, 11)
+    k_odd = torch.zeros(2, 80, 2, 65, dtype=kvdt, device="cuda")[..., :64]
+    k_odd.copy_(k)
+    for kk, vv in ((k[:, 17:49], v[:, 17:49]), (k_odd, v)):
+        got = fa_ops.flash_attention(q, kk, vv, causal=True, q_offset=20)
+        want = fa_ref.flash_attention_ref(q, kk, vv, causal=True, q_offset=20)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

@@ -95,3 +95,28 @@ def test_key_from_jax_array_is_the_same_key():
             == R.bits(tkey(jk), (9,)).numpy()).all()
     with pytest.raises(ValueError):
         R.bits(torch.zeros(3, dtype=torch.int64), (2,))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", [(7,), (3, 128), (4, 512)])
+def test_gumbel_within_log_rounding(seed, shape):
+    """``-log(-log(u))``: the uniforms are exact, ``log`` may differ in the
+    last bit."""
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape))
+    got = R.gumbel(R.PRNGKey(seed, "cpu"), shape).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("B,V,scale", [(1, 2, 1.0), (4, 512, 1.0),
+                                       (4, 512, 5.0), (3, 50304, 2.0),
+                                       (8, 33, 0.1)])
+def test_categorical_gives_the_reference_tokens(seed, B, V, scale):
+    logits = (np.random.default_rng(seed % 1000 + V).normal(size=(B, V))
+              * scale).astype(np.float32)
+    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed, "cpu")
+    want = np.asarray(jax.random.categorical(jk, jnp.asarray(logits)))
+    got = R.categorical(tk, torch.as_tensor(logits)).numpy()
+    assert got.shape == want.shape == (B,)
+    assert (got == want).all()

@@ -1,0 +1,263 @@
+"""The port's dense transformer against the reference on olmo-1b
+``.reduced()`` (2 layers, d 256, 4 heads, hd 64, vocab 512, float32): the
+configurations, the modules (norms, RoPE, FFNs), ``Model.init`` under the
+reference's key schedule, prefill, the bf16 KV cache and decode, with and
+without a sliding window, and one bfloat16 model.  Weights are carried
+across with ``convert.params_from_jax``; the JAX steps are jitted.
+
+Tolerances, and why:
+- modules, f32: 1e-5 (fp32 math in both, ``log``/``cos`` and sums may
+  differ in the last bit);
+- init: 1e-6 (``normal`` goes through erfinv, whose ``log1p`` differs in
+  the last bit);
+- prefill logits, f32: atol 2e-3 on logits up to ~200 (1e-5 relative);
+- the KV cache is bf16 in both packages (even for an f32 model): an element
+  whose f32 value lies within rounding error of a bf16 tie rounds the other
+  way, so elements agree within one bf16 step (rtol 2^-7), and few differ;
+- decode logits, f32: atol 1e-2 — they read that cache, where one bf16
+  step in an element moves a logit by up to ~1e-2;
+- a model's decode against its own full forward: rtol 2e-2 as in the
+  reference's tests/test_decode_equivalence.py (decode reads the bf16
+  cache, the full forward the f32 K/V), with atol 0.25: OLMo ties its
+  logits to a unit-normal embedding table, so they reach ~200 where the
+  reference's test model (granite) gives O(1) logits, and a K/V element's
+  rounding by 2^-9 moves them by up to ~0.1;
+- the bfloat16 model: logits are bf16 products, whose step is 1.0 between
+  128 and 256, rounded at other places in the two frameworks: atol 2.0
+  (two steps).  Its K/V are bf16 products too, whose one-step differences
+  RoPE mixes (x1 cos - x2 sin), so a small element can differ by the step
+  of its larger partner: atol 2^-5, the bf16 step for |k| in [4, 8).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import modules as jmod  # noqa: E402
+from repro.models.transformer import build_model as jbuild  # noqa: E402
+from repro_torch import configs, random as R, tree  # noqa: E402
+from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import modules  # noqa: E402
+from repro_torch.models.transformer import build_model  # noqa: E402
+
+B, T0, T = 2, 8, 16
+SUPPORTED = ["olmo-1b", "qwen1.5-4b", "granite-8b", "qwen1.5-110b"]
+DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+DECODE_VS_FULL = dict(rtol=2e-2, atol=0.25)
+
+
+def tkey(jkey):
+    return R.as_key(np.asarray(jkey), "cpu")
+
+
+def close(got, want, **kw):
+    np.testing.assert_allclose(np.asarray(got.detach().float()),
+                               np.asarray(want, np.float32), **kw)
+
+
+def _cfgs(name="olmo-1b", dtype=None):
+    cfg, jcfg = configs.get_arch(name).reduced(), jconfigs.get_arch(name).reduced()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=DTYPES[dtype])
+        jcfg = dataclasses.replace(jcfg, param_dtype=dtype)
+    return cfg, jcfg
+
+
+def _tokens():
+    return np.random.default_rng(0).integers(0, 512, (B, T)).astype(np.int32)
+
+
+# ------------------------------------------------------------- configs --
+@pytest.mark.parametrize("name", sorted(jconfigs.ARCHS))
+def test_configs_are_the_reference_configs(name):
+    for got, want in ((configs.get_arch(name), jconfigs.get_arch(name)),
+                      (configs.get_arch(name).reduced(),
+                       jconfigs.get_arch(name).reduced())):
+        for f in dataclasses.fields(want):
+            g, w = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "param_dtype":
+                assert g == DTYPES[w]
+            elif dataclasses.is_dataclass(w):
+                assert dataclasses.asdict(g) == dataclasses.asdict(w)
+            else:
+                assert g == w, f.name
+        assert got.num_params() == want.num_params()
+    assert configs.get_arch("olmo-1b").num_params() == 1_176_764_416
+
+
+@pytest.mark.parametrize("name", sorted(set(jconfigs.ARCHS) - set(SUPPORTED)))
+def test_build_model_raises_for_what_is_not_ported(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(configs.get_arch(name).reduced())
+
+
+# ------------------------------------------------------------- modules --
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm", "layernorm_np"])
+def test_norms(kind):
+    x = np.random.default_rng(1).normal(2.0, 3.0, (3, 5, 64)).astype(np.float32)
+    jp = jmod.norm_init(kind, 64, jnp.float32)
+    if kind != "layernorm_np":
+        jp = {k: jnp.linspace(0.5, 1.5, 64) + i for i, k in enumerate(sorted(jp))}
+    got = modules.norm_apply(kind, params_from_jax(jp, "cpu"), torch.as_tensor(x))
+    close(got, jmod.norm_apply(kind, jp, jnp.asarray(x)), rtol=1e-5, atol=1e-5)
+    assert tree.structure(modules.norm_init(kind, 64, device="cpu")) == \
+        tree.structure(jax.tree.map(lambda _: None, jp))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rope_prefill_and_decode_positions(hd):
+    x = np.random.default_rng(2).normal(size=(2, 9, 3, hd)).astype(np.float32)
+    pre = np.arange(9)[None]
+    close(modules.apply_rope(torch.as_tensor(x), torch.as_tensor(pre), 1e4),
+          jmod.apply_rope(jnp.asarray(x), jnp.asarray(pre), 1e4),
+          rtol=1e-5, atol=1e-5)
+    dec = np.array([[1055], [17]])
+    close(modules.apply_rope(torch.as_tensor(x[:, :1]), torch.as_tensor(dec), 1e4),
+          jmod.apply_rope(jnp.asarray(x[:, :1]), jnp.asarray(dec), 1e4),
+          rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+def test_ffn(kind):
+    jk = jax.random.PRNGKey(3)
+    jp = jmod.ffn_init(jk, kind, 32, 96, jnp.float32)
+    tp = modules.ffn_init(tkey(jk), kind, 32, 96, torch.float32)
+    for g, w in zip(tree.leaves(tp), jax.tree.leaves(jp)):
+        close(g, w, rtol=1e-6, atol=1e-6)
+    x = np.random.default_rng(3).normal(size=(2, 5, 32)).astype(np.float32)
+    close(modules.ffn_apply(kind, params_from_jax(jp, "cpu"), torch.as_tensor(x)),
+          jmod.ffn_apply(kind, jp, jnp.asarray(x)), rtol=1e-5, atol=1e-5)
+
+
+def test_softmax_xent():
+    rng = np.random.default_rng(4)
+    logits = rng.normal(size=(2, 6, 11)).astype(np.float32)
+    labels = rng.integers(-1, 11, (2, 6)).astype(np.int32)
+    close(steps.softmax_xent(torch.as_tensor(logits), torch.as_tensor(labels)),
+          jsteps.softmax_xent(jnp.asarray(logits), jnp.asarray(labels)),
+          rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- model --
+@pytest.mark.parametrize("name", SUPPORTED)
+def test_init_gives_the_reference_weights(name):
+    cfg, jcfg = _cfgs(name)
+    jk = jax.random.PRNGKey(0)
+    want = jbuild(jcfg).init(jk)
+    got = build_model(cfg).init(tkey(jk))
+    assert tree.structure(got) == tree.structure(jax.tree.map(lambda _: None, want))
+    for g, w in zip(tree.leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_tree_round_trips_bit_for_bit():
+    _, jcfg = _cfgs(dtype=jnp.bfloat16)
+    want = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(1)))
+    tp = params_from_jax(want, "cpu")
+    assert all(t.dtype == torch.bfloat16 for t in tree.leaves(tp))
+    back = params_to_numpy(tp)
+    for g, w in zip(tree.leaves(back), jax.tree.leaves(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.view(np.uint16) == w.view(np.uint16)).all()
+
+
+def _prefill_and_decode(dtype, window):
+    """Both packages on the same weights and tokens: prefill T0 tokens,
+    then decode T0..T-1 one at a time.  Returns per-step logit pairs, the
+    caches after prefill, and the port's model, weights and logits."""
+    cfg, jcfg = _cfgs(dtype=dtype)
+    jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = _tokens()
+    jl, jc = jax.jit(jsteps.make_prefill_step(jm, T))(
+        jp, {"tokens": jnp.asarray(toks[:, :T0])})
+    tl, tc = steps.make_prefill_step(m, T)(
+        tp, {"tokens": torch.as_tensor(toks[:, :T0])})
+    pairs = [(tl, jl)]
+    caches = (tree.map(torch.clone, tc), jc)
+    jstep = jax.jit(jsteps.make_serve_step(jm, window=window))
+    tstep = steps.make_serve_step(m, window=window)
+    for t in range(T0, T):
+        jl, jc = jstep(jp, jnp.asarray(toks[:, t:t + 1]), jc, jnp.int32(t))
+        tl, tc = tstep(tp, torch.as_tensor(toks[:, t:t + 1]), tc, t)
+        pairs.append((tl, jl))
+    return pairs, caches, m, tp, toks
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_prefill_cache_and_decode_match_the_reference(window):
+    pairs, (tc, jc), m, tp, toks = _prefill_and_decode(jnp.float32, window)
+    (tl, jl), decode = pairs[0], pairs[1:]
+    assert tl.dtype == torch.float32 and tl.shape == (B, 512)
+    close(tl, jl, rtol=0, atol=2e-3)
+    for name in ("k", "v"):
+        g, w = tc["sub0"][name], jc["sub0"][name]
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        close(g, w, rtol=2 ** -7, atol=0)
+        assert (g.float().numpy() != np.asarray(w, np.float32)).mean() < 1e-3
+    assert len(decode) == 8
+    for tl, jl in decode:
+        close(tl, jl, rtol=0, atol=1e-2)
+    # the port's decode equals its own full forward at the last position
+    full, _, _ = m.apply(tp, {"tokens": torch.as_tensor(toks)}, mode="train",
+                         window=window)
+    close(decode[-1][0], full[:, T - 1], **DECODE_VS_FULL)
+
+
+def test_decode_equals_the_full_forward_at_every_position():
+    cfg, _ = _cfgs()
+    m = build_model(cfg, max_seq=T)
+    tp = m.init(R.PRNGKey(5, "cpu"))
+    toks = torch.as_tensor(_tokens())
+    full, _, _ = m.apply(tp, {"tokens": toks}, mode="train")
+    cache = m.cache_init(B, T, device="cpu")
+    _, cache, _ = m.apply(tp, {"tokens": toks[:, :T0]}, mode="prefill",
+                          cache=cache)
+    for t in range(T0, T):
+        logits, cache, _ = m.apply(tp, {"tokens": toks[:, t:t + 1]},
+                                   mode="decode", cache=cache, cache_pos=t)
+        close(logits[:, 0], full[:, t], **DECODE_VS_FULL)
+
+
+def test_bfloat16_model_matches_the_reference():
+    pairs, (tc, jc), *_ = _prefill_and_decode(jnp.bfloat16, None)
+    for tl, jl in pairs:
+        close(tl, jl, rtol=0, atol=2.0)
+    close(tc["sub0"]["k"], jc["sub0"]["k"], rtol=2 ** -7, atol=2 ** -5)
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_per_slot_decode_positions_match_the_reference(window):
+    """Decode with a (B,) ``cache_pos`` (one position per slot, as a
+    continuous-batching scheduler gives): the cache writes, the windowed
+    reads and the per-row valid lengths follow each row's own position."""
+    cfg, jcfg = _cfgs()
+    jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = _tokens()
+    _, jc = jax.jit(jsteps.make_prefill_step(jm, T))(
+        jp, {"tokens": jnp.asarray(toks[:, :T0])})
+    _, tc = steps.make_prefill_step(m, T)(
+        tp, {"tokens": torch.as_tensor(toks[:, :T0])})
+    jstep = jax.jit(jsteps.make_serve_step(jm, window=window))
+    tstep = steps.make_serve_step(m, window=window)
+    for t in range(T0, T):
+        pos = np.array([t, T0 + (t - T0) // 2], np.int32)
+        jl, jc = jstep(jp, jnp.asarray(toks[:, t:t + 1]), jc, jnp.asarray(pos))
+        tl, tc = tstep(tp, torch.as_tensor(toks[:, t:t + 1]), tc,
+                       torch.as_tensor(pos))
+        close(tl, jl, rtol=0, atol=1e-2)
