@@ -20,17 +20,33 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. the kernel route on the card against the port's CPU route (the route
    the tests hold against the JAX reference) on a narrow CNN;
 7. ``flash_attention`` against its plain PyTorch version on the card, at
-   OLMo-1B's prefill and decode shapes, the reference's test cases in
-   float32 and bfloat16, a windowed and a mixed-type (float32 queries,
-   bf16 cache) shape, with the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times and the bound;
+   OLMo-1B's and Jamba's prefill and decode shapes (16 heads on 16 KV
+   heads; 32 on 8), the reference's test cases in float32 and bfloat16, a
+   windowed and a mixed-type (float32 queries, bf16 cache) shape, with the
+   kernel's, the plain version's and ``scaled_dot_product_attention``'s
+   times and the bound at the four serving shapes;
 8. the serving path at full width and depth: ``serve(get_arch("olmo-1b"),
    batch=4, prompt_len=1024, gen=32, temperature=1.0, device="cuda")``,
    with every launch counter set to 0 just before and read just after;
    the same call again (warm); then a prefill alone and one decode step
    split into the model and the sampling;
 9. serving olmo-1b ``.reduced()`` on the card against the port's CPU
-   route, greedy.
+   route, greedy;
+10. ``ssm_scan`` against its plain PyTorch version on the card, at the
+    reference's test cases (with and without h0), one decode step, the
+    state updated in place (h_out aliased to h0) and Jamba's prefill
+    shape, with A drawn as the reference's tests draw it and as the mamba
+    initialisation sets it; the kernel's and the plain version's times and
+    the bound at Jamba's prefill and decode shapes;
+11. the hybrid serving path at full width and depth: Jamba without its
+    experts, ``serve(dataclasses.replace(get_arch("jamba-v0.1-52b"),
+    moe=None), batch=4, prompt_len=1024, gen=32, temperature=1.0,
+    device="cuda")``, with every launch counter set to 0 just before and
+    read just after; then, on one drawing of the weights, the parameter
+    count, a prefill alone and one decode step split into the model and
+    the sampling, each with both kernels' share;
+12. serving Jamba without experts ``.reduced()`` on the card against the
+    port's CPU route, greedy.
 
 It then prints one JSON line describing every ported kernel, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -39,6 +55,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -51,12 +68,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# The card's memory rate, float32 rate (non-tensor-core) and bf16 dense
-# tensor-core rate, by the name nvidia-smi gives: NVIDIA's data sheets,
-# dense rates at the full power limit (None: not recorded here).  Bounds
-# are stated against these.
-CARDS = {"H100 PCIe": (2.0e12, 51e12, None), "H100 NVL": (3.9e12, 60e12, None),
-         "H100": (3.35e12, 67e12, 989e12), "H200": (4.8e12, 67e12, 989e12)}
+# The card's memory rate, float32 rate (non-tensor-core), bf16 dense
+# tensor-core rate and exponential rate, by the name nvidia-smi gives: the
+# first three from NVIDIA's data sheets, dense rates at the full power limit;
+# the last is 16 results a clock on each SM (the CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table, compute capability 9.0)
+# times the SMs and the boost clock of the data sheets: 132 at 1.98 GHz on
+# the H100 SXM and the H200.  None: not recorded here.  Bounds are stated
+# against these.
+CARDS = {"H100 PCIe": (2.0e12, 51e12, None, None),
+         "H100 NVL": (3.9e12, 60e12, None, None),
+         "H100": (3.35e12, 67e12, 989e12, 132 * 16 * 1.98e9),
+         "H200": (4.8e12, 67e12, 989e12, 132 * 16 * 1.98e9)}
 
 FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
 
@@ -67,14 +90,34 @@ FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
 F32, BF16 = "float32", "bfloat16"
 OLMO_PREFILL = (4, 1024, 1024, 16, 16, 128, True, None, 0, None, BF16, BF16)
 OLMO_DECODE = (4, 1, 1056, 16, 16, 128, False, None, 0, 1040, BF16, BF16)
+# Jamba's attention layers: 32 query heads on 8 KV heads, no RoPE
+JAMBA_ATTN_PREFILL = (4, 1024, 1024, 32, 8, 128, True, None, 0, None, BF16, BF16)
+JAMBA_ATTN_DECODE = (4, 1, 1056, 32, 8, 128, False, None, 0, 1040, BF16, BF16)
 TEST_CASES = [(2, 256, 256, 4, 2, 64, True, None), (1, 512, 512, 4, 4, 128, True, 128),
               (2, 128, 128, 8, 1, 32, False, None), (1, 300, 300, 2, 2, 80, True, None),
               (1, 256, 256, 4, 4, 128, True, 64)]
-FA_SHAPES = ([OLMO_PREFILL, OLMO_DECODE]
+# the timed shapes; the kernels line carries the first
+FA_TIMED = (("olmo prefill", OLMO_PREFILL), ("olmo decode", OLMO_DECODE),
+            ("jamba prefill", JAMBA_ATTN_PREFILL),
+            ("jamba decode", JAMBA_ATTN_DECODE))
+FA_SHAPES = ([OLMO_PREFILL, OLMO_DECODE, JAMBA_ATTN_PREFILL, JAMBA_ATTN_DECODE]
              + [c + (0, None, dt, dt) for c in TEST_CASES for dt in (F32, BF16)]
              + [(4, 1, 1056, 16, 16, 128, True, 128, 1039, None, BF16, BF16),
                 (2, 1, 24, 4, 4, 64, False, None, 0, 17, F32, BF16)])
 FA_TOL = {F32: 2e-5, BF16: 3e-2}
+
+# ssm_scan checks: B, S, D, N, with h0.  The reference's test cases
+# (tests/test_kernels.py), each with and without h0, one decode step, and
+# Jamba's prefill.  Tolerance 1e-4, the reference's own kernel-against-
+# oracle tolerance, relative to max |y| (max |h|) where that exceeds 1.
+JAMBA_PREFILL = (4, 1024, 8192, 16, False)
+JAMBA_DECODE = (4, 1, 8192, 16, True)
+SSM_TEST_CASES = [(2, 128, 64, 16), (1, 64, 256, 8), (2, 96, 32, 16),
+                  (1, 200, 48, 4)]
+SSM_SHAPES = ([c + (h0,) for c in SSM_TEST_CASES for h0 in (False, True)]
+              + [JAMBA_DECODE, JAMBA_PREFILL])
+SSM_TOL = 1e-4
+SSM_FLOPS = 7                # fp32 operations per (b, t, d, n) besides exp
 
 
 def check(cond, msg):
@@ -122,9 +165,35 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
+    """Times ``kernel``, its plain version and the library call (None
+    where there is none), each launch with a cold L2 (a 256 MB buffer is
+    written before it, as a layer finds the cache after the others), and
+    bounds the kernel by the larger of ``nbytes`` at ``mem_rate`` and each
+    (count, rate) of ``ops``.  Prints the numbers and returns them as the
+    kernels line's keys."""
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    ms = time_ms(torch, kernel, flush=flush)
+    plain_ms = time_ms(torch, plain, reps=3, warmup=1, flush=flush)
+    lib_ms = None if library is None else time_ms(torch, library, flush=flush)
+    del scratch
+    bytes_ms = nbytes / mem_rate * 1e3
+    ops_ms = max(n / rate * 1e3 for n, rate in ops)
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+    print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound "
+          f"{bound_ms:.4f} ms ({bound_by}; bytes {bytes_ms:.4f} ms, "
+          f"operations {ops_ms:.4f} ms); kernel at {bound_ms / ms:.1%} of "
+          f"bound, {nbytes / ms / 1e6:.1f} GB/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def flash_phase(torch, mem_rate, bf16_rate):
     """Phase 7.  Returns the kernel's entry of the kernels line (all but
-    its launches) and its times at OLMo-1B's prefill and decode shapes."""
+    its launches) and its times at the FA_TIMED shapes, by label."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     print("== 7. flash_attention against its plain version on the card")
@@ -152,12 +221,10 @@ def flash_phase(torch, mem_rate, bf16_rate):
         max_err = max(max_err, err)
         inputs[shape] = (q, k, v, kw)
 
-    # times at the OLMo-1B shapes, each launch with a cold L2 (as a layer
-    # finds it after the other 15), against the bound and two yardsticks
-    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    flush = scratch.zero_
+    # times at the serving paths' shapes, against the bound and two
+    # yardsticks: the plain version and scaled_dot_product_attention
     times, entry = {}, None
-    for label, shape in (("prefill", OLMO_PREFILL), ("decode", OLMO_DECODE)):
+    for label, shape in FA_TIMED:
         B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = shape[:10]
         q, k, v, kw = inputs[shape]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -165,36 +232,32 @@ def flash_phase(torch, mem_rate, bf16_rate):
             torch.arange(Sk, device="cuda") < kv_len)[None, None, None, :]
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  is_causal=causal)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal,
+                enable_gqa=H != KV)
 
         lib_err = (sdpa().transpose(1, 2).float()
                    - fa_ops.flash_attention(q, k, v, **kw).float()).abs().max().item()
-        ms = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
-                     flush=flush)
-        plain_ms = time_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw),
-                           reps=5, flush=flush)
-        lib_ms = time_ms(torch, sdpa, flush=flush)
         pairs, keys = valid_pairs(Sq, Sk, causal, window, q_offset, kv_len)
         nbytes = (2 * B * Sq * H * hd + 2 * B * keys * KV * hd) * q.element_size()
         flops = 4 * B * H * hd * pairs
-        bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         print(f"  {label} {shape[:10]}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP; kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms (max diff to the "
-              f"kernel {lib_err:.2e})  bound {bound_ms:.4f} ms ({bound_by}); "
-              f"kernel at {bound_ms / ms:.1%} of bound, "
-              f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s")
-        times[label] = ms
-        if entry is None:               # the kernels line carries the prefill
-            entry = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms}
-    del scratch, inputs
+              f"{flops / 1e9:.2f} GFLOP; sdpa's max diff to the kernel "
+              f"{lib_err:.2e}")
+        timed = timed_entry(
+            torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
+            lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
+            nbytes, [(flops, bf16_rate)], mem_rate)
+        times[label] = timed["ms"]
+        if entry is None:
+            entry = {"max_abs_err": max_err, **timed}
+    del inputs
     torch.cuda.empty_cache()
     return entry, times
+
+
+def read_counts(counters):
+    return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in counters}
 
 
 def serve_phase(torch, counters, decode_kernel_ms):
@@ -213,7 +276,7 @@ def serve_phase(torch, counters, decode_kernel_ms):
         k.launches = 0
     res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
                 device="cuda")
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in counters}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     want = cfg.num_layers * (1 + (G - 1))
     print(f"  {cfg.num_params():,} parameters, {cfg.param_dtype}; launches "
@@ -226,7 +289,8 @@ def serve_phase(torch, counters, decode_kernel_ms):
     check(launches["flash_attention"] == want,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {want}")
-    check(launches["bwo_evolve"] == 0, "the serving path ran bwo_evolve")
+    check(launches["bwo_evolve"] == 0 and launches["ssm_scan"] == 0,
+          "the dense serving path ran bwo_evolve or ssm_scan")
     toks = res.tokens
     check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -296,6 +360,208 @@ def serve_card_vs_cpu(torch):
         check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
 
 
+def ssm_inputs(torch, shape, gen, mamba_A):
+    """As the reference's tests draw them: dt = softplus(z) * 0.1 and
+    A = -exp(0.3 z); or A = -(1..N), the mamba initialisation."""
+    B, S, D, N, with_h0 = shape
+    x = torch.randn(B, S, D, device="cuda", generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, D, device="cuda", generator=gen)) * 0.1
+    if mamba_A:
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").repeat(D, 1)
+    else:
+        A = -torch.exp(torch.randn(D, N, device="cuda", generator=gen) * 0.3)
+    Bc = torch.randn(B, S, N, device="cuda", generator=gen)
+    Cc = torch.randn(B, S, N, device="cuda", generator=gen)
+    h0 = (torch.randn(B, D, N, device="cuda", generator=gen)
+          if with_h0 else None)
+    return x, dt, A, Bc, Cc, h0
+
+
+def ssm_err(got, want):
+    """max |got - want| and the scale it is held to, max(1, max |want|)."""
+    return ((got - want).abs().max().item(),
+            max(1.0, want.abs().max().item()))
+
+
+def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
+    """Phase 10.  Returns the kernel's entry of the kernels line (all but
+    its launches) and its times at Jamba's prefill and decode shapes."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+    print("== 10. ssm_scan against its plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    max_err, inputs = 0.0, {}
+    for shape in SSM_SHAPES:
+        for mamba_A in (False, True):
+            args = ssm_inputs(torch, shape, gen, mamba_A)
+            y, h = ssm_ops.ssm_scan(*args)
+            want_y, want_h = ssm_ref.ssm_scan_ref(*args)
+            torch.cuda.synchronize()
+            (ey, sy), (eh, sh) = ssm_err(y, want_y), ssm_err(h, want_h)
+            ok = (y.shape == want_y.shape and h.shape == want_h.shape
+                  and ey <= SSM_TOL * sy and eh <= SSM_TOL * sh)
+            print(f"  B,S,D,N,h0={shape} A {'-(1..N)' if mamba_A else 'drawn'}: "
+                  f"y max_abs_err {ey:.3e} (scale {sy:.1f}), h {eh:.3e} "
+                  f"(scale {sh:.1f}), tol {SSM_TOL} x scale "
+                  f"{'ok' if ok else 'FAILED'}")
+            check(ok and math.isfinite(ey) and math.isfinite(eh),
+                  f"ssm_scan disagrees at {shape}")
+            max_err = max(max_err, ey, eh)
+            if mamba_A:
+                inputs[shape] = args
+
+    # decode's state update in place: h_out is h0 itself
+    x, dt, A, Bc, Cc, h0 = inputs[JAMBA_DECODE]
+    want_y, want_h = ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0)
+    state = h0.clone()
+    y, h = ssm_ops.ssm_scan(x, dt, A, Bc, Cc, state, h_out=state)
+    torch.cuda.synchronize()
+    (ey, sy), (eh, sh) = ssm_err(y, want_y), ssm_err(state, want_h)
+    ok = h is state and ey <= SSM_TOL * sy and eh <= SSM_TOL * sh
+    print(f"  h_out aliased to h0 at {JAMBA_DECODE}: y {ey:.3e}, h {eh:.3e} "
+          f"{'ok' if ok else 'FAILED'}")
+    check(ok, "ssm_scan with h_out aliased to h0 disagrees")
+
+    times, entry = {}, None
+    for label, shape in (("prefill", JAMBA_PREFILL), ("decode", JAMBA_DECODE)):
+        B, S, D, N, _ = shape
+        x, dt, A, Bc, Cc, h0 = inputs[shape]
+        out = None if h0 is None else h0.clone()
+        nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N
+                      + (2 if h0 is not None else 1) * B * D * N)
+        exps = B * S * D * N
+        print(f"  {label} {shape}: {nbytes / 1e6:.1f} MB, {exps / 1e6:.1f} "
+              f"M exp, {SSM_FLOPS * exps / 1e9:.2f} GFLOP fp32")
+        timed = timed_entry(
+            torch, lambda: ssm_kernel.ssm_scan_cuda(x, dt, A, Bc, Cc, out,
+                                                    h_out=out),
+            lambda: ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0), None,
+            nbytes, [(exps, exp_rate), (SSM_FLOPS * exps, f32_rate)], mem_rate)
+        times[label] = timed["ms"]
+        if entry is None:               # the kernels line carries the prefill
+            entry = {"max_abs_err": max_err, **timed}
+    del inputs
+    torch.cuda.empty_cache()
+    return entry, times
+
+
+def jamba_phase(torch, counters, ssm_times, fa_times):
+    """Phase 11.  Returns ssm_scan's launches on the hybrid serving path."""
+    from repro_torch import random, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import build_model
+    print("== 11. serving Jamba without experts at full width and depth")
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None)
+    B, P, G = 4, 1024, 32
+    n_mamba = cfg.block_pattern.count("mamba") * cfg.num_groups
+    n_attn = cfg.num_layers - n_mamba
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
+                device="cuda")
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want_ssm, want_fa = n_mamba * G, n_attn * G
+    print(f"  {cfg.num_layers} layers ({n_mamba} mamba, {n_attn} attn), d "
+          f"{cfg.d_model}, {cfg.param_dtype}; launches {launches} (expected "
+          f"ssm_scan {want_ssm}, flash_attention {want_fa})")
+    print(f"  init_s {res.init_s:.3f}  prefill_ms {res.prefill_ms:.3f}  "
+          f"decode_ms_per_step {res.decode_ms_per_step:.3f}  tokens_per_s "
+          f"{res.tokens_per_s:.1f}  max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  sample: {res.tokens[0, :16].tolist()}")
+    check(launches["ssm_scan"] == want_ssm,
+          f"ssm_scan launched {launches['ssm_scan']} times, expected {want_ssm}")
+    check(launches["flash_attention"] == want_fa,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected {want_fa}")
+    check(launches["bwo_evolve"] == 0, "the serving path ran bwo_evolve")
+    toks = res.tokens
+    check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"tokens out of range or misshapen: {tuple(toks.shape)}")
+    check(res.logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(res.logits).all()), "non-finite logits")
+    del res
+    torch.cuda.empty_cache()
+
+    # one drawing of the weights (serve()'s, seed 0) for the count, a
+    # prefill alone and one decode step split into the model and sampling
+    dev = torch.device("cuda")
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, dev))
+    leaves = tree.leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"  parameter tree: {n_params:,} parameters, {n_bytes:,} bytes "
+          f"(ArchConfig.num_params() reports {cfg.num_params():,}: it counts "
+          f"no FFN on a mamba layer)")
+    check(n_params == 9_290_682_368 and n_bytes == 18_589_163_520,
+          f"the tree holds {n_params} parameters in {n_bytes} bytes")
+    prompts = random.randint(random.PRNGKey(1, dev), (B, P), 0, cfg.vocab_size)
+    prefill = make_prefill_step(model, P + G)
+    prefill_ms = time_ms(torch, lambda: prefill(params, {"tokens": prompts}),
+                         reps=3, warmup=1)
+    logits, cache = prefill(params, {"tokens": prompts})
+    state_mb = sum(t.numel() * t.element_size()
+                   for t in tree.leaves(cache)) / 1e6
+    step = make_serve_step(model)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    model_ms = time_ms(torch, lambda: step(params, tok, cache, P + G - 2),
+                       reps=10)
+    key = random.PRNGKey(1, dev)
+
+    def sample():
+        _, k = random.split(key)
+        return random.categorical(k, logits)
+
+    sample_ms = time_ms(torch, sample, reps=10)
+
+    def kernels_share(part, total_ms):
+        scan = n_mamba * ssm_times[part]
+        flash = n_attn * fa_times[f"jamba {part}"]
+        return (f"the kernels {scan + flash:.3f} ms, "
+                f"{(scan + flash) / total_ms:.1%}: ssm_scan {n_mamba} x "
+                f"{ssm_times[part]:.4f} ms cold = {scan:.3f} ms, "
+                f"flash_attention {n_attn} x {fa_times[f'jamba {part}']:.4f} "
+                f"ms cold = {flash:.3f} ms")
+
+    print(f"  KV cache + mamba state {state_mb:.1f} MB; prefill alone "
+          f"{prefill_ms:.3f} ms (of which {kernels_share('prefill', prefill_ms)})")
+    print(f"  one decode step: model {model_ms:.3f} ms (of which "
+          f"{kernels_share('decode', model_ms)}), sampling (key split + "
+          f"categorical over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return launches["ssm_scan"]
+
+
+def jamba_card_vs_cpu(torch):
+    """Phase 12: greedy serving of Jamba without experts, reduced (float32
+    weights, bf16 KV cache, float32 mamba state), on the card against the
+    CPU route.  Tolerance 1e-2 on the last logits, as phase 9's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    print("== 12. serving Jamba without experts, reduced, on the card "
+          "against the CPU route")
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None).reduced()
+    kw = dict(batch=2, prompt_len=16, gen=8, temperature=0.0)
+    on_card, on_cpu = serve(cfg, device="cuda", **kw), serve(cfg, device="cpu", **kw)
+    same = bool((on_card.tokens.cpu() == on_cpu.tokens).all())
+    diff = (on_card.logits.cpu() - on_cpu.logits).abs().max().item()
+    print(f"  tokens {'equal' if same else 'DIFFER'}, last logits max diff "
+          f"{diff:.2e} (tol 1e-2, |logits| up to "
+          f"{on_cpu.logits.abs().max().item():.1f})")
+    check(same, "card and CPU routes served different tokens")
+    check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -308,7 +574,8 @@ def main() -> int:
     from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
     from repro_torch.kernels.bwo_evolve import ops as bwo_ops, ref as bwo_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
-    counters = (bwo_kernel, fa_kernel)
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
+    counters = (bwo_kernel, fa_kernel, ssm_kernel)
 
     # ---------------------------------------------------- 1. environment --
     print("== 1. environment")
@@ -319,16 +586,19 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi)
     name = torch.cuda.get_device_name(0)
-    mem_rate, f32_rate, bf16_rate = card_rates(name)
-    check(bf16_rate is not None, f"no bf16 tensor-core rate recorded for "
-          f"{name!r}: the attention bound needs one")
+    mem_rate, f32_rate, bf16_rate, exp_rate = card_rates(name)
+    check(bf16_rate is not None and exp_rate is not None,
+          f"no bf16 tensor-core or exponential rate recorded for {name!r}: "
+          f"the attention and scan bounds need them")
     print(f"device {name}  count {torch.cuda.device_count()}  "
           f"rates used for bounds: {mem_rate / 1e12} TB/s, "
-          f"{f32_rate / 1e12} TFLOP/s fp32, {bf16_rate / 1e12} TFLOP/s bf16")
+          f"{f32_rate / 1e12} TFLOP/s fp32, {bf16_rate / 1e12} TFLOP/s bf16, "
+          f"{exp_rate / 1e12:.3f} T exp/s")
 
     # ---------------------------------------------------------- 2. build --
     print("== 2. build")
-    builds = {"bwo_evolve": bwo_kernel.build, "flash_attention": fa_kernel.build}
+    builds = {"bwo_evolve": bwo_kernel.build, "flash_attention": fa_kernel.build,
+              "ssm_scan": ssm_kernel.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(fn) for k, fn in builds.items()}
@@ -433,8 +703,7 @@ def main() -> int:
     t0 = time.perf_counter()
     result = exp.run(verbose=True)
     wall = time.perf_counter() - t0
-    launches = {"bwo_evolve": bwo_kernel.launches,
-                "flash_attention": fa_kernel.launches}
+    launches = read_counts(counters)
     rounds = len(result.logs)
     for log in result.logs:
         print(f"  round {log.round}: round_time_s {log.round_time_s:.3f}  "
@@ -446,7 +715,8 @@ def main() -> int:
     check(launches["bwo_evolve"] == want_launches,
           f"bwo_evolve launched {launches['bwo_evolve']} times, "
           f"expected {want_launches}")
-    check(launches["flash_attention"] == 0, "the FL path ran attention")
+    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
+          "the FL path ran attention or the scan")
     for log in result.logs:
         check(all(math.isfinite(s) for s in log.info["scores"]),
               f"non-finite score in round {log.round}: {log.info['scores']}")
@@ -494,8 +764,11 @@ def main() -> int:
               "card and CPU routes disagree beyond 1e-4")
 
     fa, fa_times = flash_phase(torch, mem_rate, bf16_rate)
-    serve_launches = serve_phase(torch, counters, fa_times["decode"])
+    serve_launches = serve_phase(torch, counters, fa_times["olmo decode"])
     serve_card_vs_cpu(torch)
+    ssm, ssm_times = ssm_phase(torch, mem_rate, f32_rate, exp_rate)
+    jamba_launches = jamba_phase(torch, counters, ssm_times, fa_times)
+    jamba_card_vs_cpu(torch)
 
     # --------------------------------------------------------- results --
     kernels = [{
@@ -508,7 +781,11 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "launches": serve_launches, **fa}]
+        "launches": serve_launches, **fa}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
+        "launches": jamba_launches, **ssm}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

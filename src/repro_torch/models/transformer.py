@@ -1,17 +1,18 @@
 """The decoder stack: the port of ``repro/models/transformer.py`` for
-attention-only block patterns with a dense FFN (OLMo, Granite, Qwen1.5).
+block patterns of attention and Mamba layers with a dense FFN (OLMo,
+Granite, Qwen1.5; Jamba without its experts).
 
 Layers are grouped by the arch's repeating ``block_pattern`` and the
 group params are *stacked* along a leading axis (``num_groups``), as in the
 reference, so a parameter tree carries across as a copy; the reference's
-``lax.scan`` over that axis is a loop here.  MoE, MLA, Mamba, xLSTM,
+``lax.scan`` over that axis is a loop here.  MoE, MLA, xLSTM,
 encoder-decoder, vision prefixes, cross-attention and learned positions
 are not ported yet and raise in ``build_model`` (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -19,11 +20,38 @@ from repro_torch import random, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
+from repro_torch.models import ssm as ssm_lib
+
+
+class _Mixer(NamedTuple):
+    """A mixer kind's init(key, cfg), cache_init(cfg, batch, max_len, *,
+    quantized, device) and apply(p, h, *, cfg, mode, positions, cache,
+    cache_pos, window) -> (y, new cache)."""
+    init: Callable
+    cache_init: Callable
+    apply: Callable
+
+
+def _mamba_state_init(cfg, batch, max_len, *, quantized, device):
+    # a fixed-size state: no length, and nothing to quantize
+    return ssm_lib.mamba_state_init(cfg, batch, device=device)
+
+
+def _mamba_apply(p, h, *, cfg, mode, positions, cache, cache_pos, window):
+    # the recurrence and the conv window carry the order: no positions
+    return ssm_lib.mamba_apply(p, h, cfg=cfg, mode=mode, state=cache)
+
+
+# every ported mixer kind; any other raises in build_model
+_MIXERS = {
+    "attn": _Mixer(attn.gqa_init, attn.gqa_cache_init, attn.gqa_apply),
+    "mamba": _Mixer(ssm_lib.mamba_init, _mamba_state_init, _mamba_apply),
+}
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
     """What of ``cfg`` the port lacks, or None."""
-    kinds = sorted(set(cfg.block_pattern) - {"attn"})
+    kinds = sorted(set(cfg.block_pattern) - set(_MIXERS))
     if kinds:
         return f"{'/'.join(kinds)} blocks"
     for what, present in (("MoE", cfg.moe is not None),
@@ -44,9 +72,9 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "norm1": nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                               device=dev),
-        "mixer": attn.gqa_init(r[0], cfg),
+        "mixer": _MIXERS[cfg.block_pattern[sub_idx]].init(r[0], cfg),
     }
-    if cfg.ffn != "none":
+    if cfg.ffn != "none":           # attn and mamba layers alike (no MoE)
         p["norm2"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                   device=dev)
         p["ffn"] = nn.ffn_init(r[2], cfg.ffn, cfg.d_model, cfg.d_ff,
@@ -54,12 +82,18 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
     return p
 
 
-def _apply_sublayer(p, x, *, cfg: ArchConfig, mode: str, positions,
-                    cache_entry, cache_pos, window):
+def _cache_sublayer(cfg: ArchConfig, sub_idx: int, batch: int,
+                    max_len: int, quantized: bool, device):
+    return _MIXERS[cfg.block_pattern[sub_idx]].cache_init(
+        cfg, batch, max_len, quantized=quantized, device=device)
+
+
+def _apply_sublayer(p, x, *, cfg: ArchConfig, sub_idx: int, mode: str,
+                    positions, cache_entry, cache_pos, window):
     h = nn.norm_apply(cfg.norm, p["norm1"], x)
-    y, new_cache = attn.gqa_apply(p["mixer"], h, cfg=cfg, mode=mode,
-                                  positions=positions, cache=cache_entry,
-                                  cache_pos=cache_pos, window=window)
+    y, new_cache = _MIXERS[cfg.block_pattern[sub_idx]].apply(
+        p["mixer"], h, cfg=cfg, mode=mode, positions=positions,
+        cache=cache_entry, cache_pos=cache_pos, window=window)
     x = x + y
     if "ffn" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
@@ -104,9 +138,8 @@ class Model:
     def cache_init(self, batch: int, max_len: int, quantized: bool = False,
                    *, device) -> Dict[str, Any]:
         cfg = self.cfg
-        one_group = {f"sub{i}": attn.gqa_cache_init(cfg, batch, max_len,
-                                                    quantized=quantized,
-                                                    device=device)
+        one_group = {f"sub{i}": _cache_sublayer(cfg, i, batch, max_len,
+                                                quantized, device)
                      for i in range(cfg.group_size)}
         return tree.map(lambda a: a.new_zeros((cfg.num_groups, *a.shape)),
                         one_group)
@@ -116,7 +149,8 @@ class Model:
               cache=None, cache_pos=None, window: Optional[int] = None):
         """Returns (logits, new_cache, aux_loss); logits in float32 for
         every position.  ``cache_pos`` (decode) is an int or a (B,) tensor.
-        The cache is written in place (see ``attention.gqa_apply``)."""
+        The cache is written in place (see ``attention.gqa_apply`` and
+        ``ssm.mamba_apply``): each group's entries are views into it."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -136,7 +170,7 @@ class Model:
             gcache = None if cache is None else tree.map(lambda a: a[g], cache)
             for i in range(cfg.group_size):
                 x, _ = _apply_sublayer(
-                    gparams[f"sub{i}"], x, cfg=cfg, mode=mode,
+                    gparams[f"sub{i}"], x, cfg=cfg, sub_idx=i, mode=mode,
                     positions=positions,
                     cache_entry=None if gcache is None else gcache[f"sub{i}"],
                     cache_pos=cache_pos, window=window)
@@ -155,5 +189,6 @@ def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
     if missing is not None:
         raise NotImplementedError(
             f"{cfg.name}: {missing} not ported yet (ROADMAP queue 1, "
-            f"item 12); the port serves attention-only dense models")
+            f"item 12); the port serves attention and mamba layers with "
+            f"a dense FFN")
     return Model(cfg=cfg, max_seq=max_seq)

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert bad == []
 
 
-@pytest.mark.parametrize("kernel", ["bwo_evolve", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["bwo_evolve", "flash_attention",
+                                    "ssm_scan"])
 def test_kernel_module_imports_without_nvcc(kernel):
     """The build is lazy: importing the ops module compiles nothing and
     needs no CUDA toolkit."""

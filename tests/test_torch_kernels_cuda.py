@@ -16,6 +16,8 @@ from repro_torch.kernels.bwo_evolve import bwo_evolve as kernel_mod  # noqa: E40
 from repro_torch.kernels.bwo_evolve import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as fa_kernel, ops as fa_ops, ref as fa_ref)
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_kernel)
 
 GRID = [(4, 128), (8, 100), (16, 1000), (6, 4097)]
 DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -108,3 +110,84 @@ def test_flash_attention_kernel_reads_strided_views(dtype):
         want = fa_ref.flash_attention_ref(q, kk, vv, causal=True, q_offset=20)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+# B, S, D, N, with_h0: the reference's kernel cases (tests/test_kernels.py),
+# one decode step, ragged channel tiles, and Jamba's prefill and decode
+SSM_CASES = [
+    (2, 128, 64, 16, False), (1, 64, 256, 8, True), (2, 96, 32, 16, False),
+    (1, 200, 48, 4, True), (4, 1, 8192, 16, True), (3, 77, 40, 8, True),
+    (4, 1024, 8192, 16, False),
+]
+
+
+def _ssm_inputs(B, S, D, N, with_h0, seed, mamba_A=False):
+    """As the reference's test draws them: dt = softplus(z) * 0.1 and
+    A = -exp(0.3 z); or A = -(1..N), the mamba initialisation."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g).to("cuda")
+
+    x = normal(B, S, D)
+    dt = torch.nn.functional.softplus(normal(B, S, D)) * 0.1
+    A = (-torch.arange(1, N + 1, dtype=torch.float32, device="cuda")
+         .repeat(D, 1) if mamba_A else -torch.exp(normal(D, N) * 0.3))
+    Bc, Cc = normal(B, S, N), normal(B, S, N)
+    h0 = normal(B, D, N) if with_h0 else None
+    return x, dt, A, Bc, Cc, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,N,with_h0", SSM_CASES)
+@pytest.mark.parametrize("mamba_A", [False, True])
+def test_ssm_scan_kernel_matches_plain_version(B, S, D, N, with_h0, mamba_A):
+    """Tolerance 1e-4 (the reference's own kernel-against-oracle one),
+    relative to max |y| (and max |h|): exponentials and sums over N may
+    differ in the last bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(B, S, D, N, with_h0, S * 1000 + D, mamba_A)
+    before = ssm_kernel.launches
+    y, h = ssm_ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, D) and h.shape == (B, D, N)
+    want_y, want_h = ssm_ref.ssm_scan_ref(*args)
+    for got, want in ((y, want_y), (h, want_h)):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 70])
+def test_ssm_scan_kernel_updates_the_state_in_place(S):
+    """h_out aliased to h0, as decode passes the cached state: every
+    element of h0 is read before it is overwritten."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, dt, A, Bc, Cc, h0 = _ssm_inputs(4, S, 8192, 16, True, 5)
+    want_y, want_h = ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0)
+    state = h0.clone()
+    y, h = ssm_ops.ssm_scan(x, dt, A, Bc, Cc, state, h_out=state)
+    torch.cuda.synchronize()
+    assert h is state
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(state, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, dt, A, Bc, Cc, _ = _ssm_inputs(1, 4, 32, 16, False, 6)
+    before = ssm_kernel.launches
+    with pytest.raises(ValueError, match="state dim"):
+        ssm_ops.ssm_scan(x, dt, A[:, :12], Bc[..., :12], Cc[..., :12])
+    with pytest.raises(TypeError, match="float32"):
+        ssm_kernel.ssm_scan_cuda(x.double(), dt, A, Bc, Cc)
+    with pytest.raises(ValueError, match="h_out"):
+        ssm_ops.ssm_scan(x, dt, A, Bc, Cc, h_out=torch.empty(1, 32, 8,
+                                                              device="cuda"))
+    assert ssm_kernel.launches == before

@@ -6,7 +6,14 @@
 tokens must be equal: both packages draw the same keys, and the logits
 agree to ~1e-5 relative (tests/test_torch_transformer.py), far inside the
 gaps between the top candidates.  At temperature 1 OLMo's random-weight
-logits (up to ~200) leave the sampler no choice; at 300 it has one."""
+logits (up to ~200) leave the sampler no choice; at 300 it has one.
+
+Jamba without its experts (``moe=None``) ``.reduced()`` is served the same
+way, greedy and at temperature 300: its mamba layers scan through the
+plain version of the ``ssm_scan`` kernel, the reference's through its
+associative scan, and its logits agree to ~2e-4 (its attention layers
+read the bf16 cache; tests/test_torch_transformer.py)."""
+
 import numpy as np
 import pytest
 
@@ -21,13 +28,14 @@ from repro.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro.models.transformer import build_model as jbuild  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from test_torch_transformer import JAMBA, arch_cfgs  # noqa: E402
 
 BATCH, PROMPT, GEN = 2, 16, 8
 
 
-def _reference_tokens(temperature, window=None):
+def _reference_tokens(temperature, window=None, cfg=None):
     """The reference's loop (repro/launch/serve.py:29-70), jitted."""
-    cfg = jget_arch("olmo-1b").reduced()
+    cfg = cfg or jget_arch("olmo-1b").reduced()
     max_len = PROMPT + GEN
     model = jbuild(cfg, max_seq=max_len)
     params = model.init(jax.random.PRNGKey(0))
@@ -66,6 +74,20 @@ def test_serve_gives_the_reference_tokens(temperature, window):
                                atol=1e-2)
     assert res.prefill_ms > 0 and res.decode_ms_per_step > 0
     assert res.tokens_per_s > 0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 300.0])
+def test_serve_jamba_without_experts_gives_the_reference_tokens(temperature):
+    cfg, jcfg = arch_cfgs(JAMBA, moe=None)
+    res = serve_mod.serve(cfg, batch=BATCH,
+                          prompt_len=PROMPT, gen=GEN, temperature=temperature,
+                          device="cpu")
+    want, want_logits = _reference_tokens(
+        temperature, cfg=jcfg)
+    assert res.tokens.dtype == torch.int32 and res.tokens.shape == (BATCH, GEN)
+    assert (res.tokens.numpy() == want).all()
+    np.testing.assert_allclose(res.logits.numpy(), want_logits, rtol=0,
+                               atol=1e-2)
 
 
 def test_cli_runs_on_the_cpu_and_raises_without_a_card(capsys):

@@ -27,6 +27,22 @@ Tolerances, and why:
   (two steps).  Its K/V are bf16 products too, whose one-step differences
   RoPE mixes (x1 cos - x2 sin), so a small element can differ by the step
   of its larger partner: atol 2^-5, the bf16 step for |k| in [4, 8).
+
+Jamba without its experts (``moe=None``), ``.reduced()``: 16 layers, two
+groups of (mamba x 4, attn, mamba x 3), d 256, d_inner 512, N 8, chunk
+32, untied logits of O(1), float32.  The reference's prefill sums the
+recurrence with an associative scan, the port step by step (the plain
+version of its kernel):
+- full-forward and prefill logits: 1e-4 (measured ~1e-5 on logits up to
+  ~5);
+- the mamba state after prefill (h, conv; float32 in both): 1e-4;
+- decode logits: 1e-2, as OLMo's, since the attention layers read the
+  bf16 KV cache (measured ~2e-4);
+- the mamba state after the decode steps: 1e-3, since each step feeds
+  the next layers' states with what it read from that cache (measured
+  ~2e-4 on |h| up to ~8);
+- decode against the port's own full forward: rtol = atol = 2e-2, the
+  reference's tests/test_decode_equivalence.py tolerance.
 """
 import dataclasses
 
@@ -50,6 +66,7 @@ from repro_torch.models import modules  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 
 B, T0, T = 2, 8, 16
+JAMBA = "jamba-v0.1-52b"
 SUPPORTED = ["olmo-1b", "qwen1.5-4b", "granite-8b", "qwen1.5-110b"]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -66,8 +83,12 @@ def close(got, want, **kw):
                                np.asarray(want, np.float32), **kw)
 
 
-def _cfgs(name="olmo-1b", dtype=None):
-    cfg, jcfg = configs.get_arch(name).reduced(), jconfigs.get_arch(name).reduced()
+def arch_cfgs(name="olmo-1b", dtype=None, **changes):
+    """``name``'s configuration with ``changes`` (``moe=None`` gives Jamba
+    without its experts), reduced, in both packages; ``dtype``, a JAX
+    type, sets the parameters' type."""
+    cfg = dataclasses.replace(configs.get_arch(name), **changes).reduced()
+    jcfg = dataclasses.replace(jconfigs.get_arch(name), **changes).reduced()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=DTYPES[dtype])
         jcfg = dataclasses.replace(jcfg, param_dtype=dtype)
@@ -152,7 +173,7 @@ def test_softmax_xent():
 # ---------------------------------------------------------------- model --
 @pytest.mark.parametrize("name", SUPPORTED)
 def test_init_gives_the_reference_weights(name):
-    cfg, jcfg = _cfgs(name)
+    cfg, jcfg = arch_cfgs(name)
     jk = jax.random.PRNGKey(0)
     want = jbuild(jcfg).init(jk)
     got = build_model(cfg).init(tkey(jk))
@@ -163,7 +184,7 @@ def test_init_gives_the_reference_weights(name):
 
 
 def test_bf16_tree_round_trips_bit_for_bit():
-    _, jcfg = _cfgs(dtype=jnp.bfloat16)
+    _, jcfg = arch_cfgs(dtype=jnp.bfloat16)
     want = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(1)))
     tp = params_from_jax(want, "cpu")
     assert all(t.dtype == torch.bfloat16 for t in tree.leaves(tp))
@@ -177,7 +198,7 @@ def _prefill_and_decode(dtype, window):
     """Both packages on the same weights and tokens: prefill T0 tokens,
     then decode T0..T-1 one at a time.  Returns per-step logit pairs, the
     caches after prefill, and the port's model, weights and logits."""
-    cfg, jcfg = _cfgs(dtype=dtype)
+    cfg, jcfg = arch_cfgs(dtype=dtype)
     jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
@@ -218,7 +239,7 @@ def test_prefill_cache_and_decode_match_the_reference(window):
 
 
 def test_decode_equals_the_full_forward_at_every_position():
-    cfg, _ = _cfgs()
+    cfg, _ = arch_cfgs()
     m = build_model(cfg, max_seq=T)
     tp = m.init(R.PRNGKey(5, "cpu"))
     toks = torch.as_tensor(_tokens())
@@ -244,7 +265,7 @@ def test_per_slot_decode_positions_match_the_reference(window):
     """Decode with a (B,) ``cache_pos`` (one position per slot, as a
     continuous-batching scheduler gives): the cache writes, the windowed
     reads and the per-row valid lengths follow each row's own position."""
-    cfg, jcfg = _cfgs()
+    cfg, jcfg = arch_cfgs()
     jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
@@ -261,3 +282,104 @@ def test_per_slot_decode_positions_match_the_reference(window):
         tl, tc = tstep(tp, torch.as_tensor(toks[:, t:t + 1]), tc,
                        torch.as_tensor(pos))
         close(tl, jl, rtol=0, atol=1e-2)
+
+
+# ------------------------------------------------ jamba without experts --
+def test_jamba_without_experts_init_gives_the_reference_weights():
+    cfg, jcfg = arch_cfgs(JAMBA, moe=None)
+    assert build_model(cfg).cfg is cfg
+    jk = jax.random.PRNGKey(0)
+    want = jbuild(jcfg).init(jk)
+    got = build_model(cfg).init(tkey(jk))
+    assert tree.structure(got) == tree.structure(jax.tree.map(lambda _: None, want))
+    assert "ffn" in got["groups"]["sub0"] and "A_log" in got["groups"]["sub0"]["mixer"]
+    for g, w in zip(tree.leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_jamba_without_experts_bf16_tree_round_trips_bit_for_bit():
+    """A bf16 model keeps A_log and D in float32: a tree of both types
+    crosses ``convert.py`` leaf by leaf, and so does the cache."""
+    cfg, jcfg = arch_cfgs(JAMBA, moe=None)
+    jcfg = dataclasses.replace(jcfg, param_dtype=jnp.bfloat16)
+    jm = jbuild(jcfg, max_seq=T)
+    for want in (jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1))),
+                 jax.tree.map(np.asarray, jm.cache_init(B, T))):
+        back = params_to_numpy(params_from_jax(want, "cpu"))
+        for g, w in zip(tree.leaves(back), jax.tree.leaves(want)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert (g.view(np.uint8) == w.view(np.uint8)).all()
+    dtypes = {str(w.dtype) for w in jax.tree.leaves(want)}
+    assert dtypes == {"float32", "bfloat16"}
+
+
+def test_jamba_without_experts_forward_matches_the_reference():
+    cfg, jcfg = arch_cfgs(JAMBA, moe=None)
+    jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = _tokens()
+    jl, _, _ = jax.jit(lambda p, t: jm.apply(p, {"tokens": t}, mode="train"))(
+        jp, jnp.asarray(toks))
+    tl, cache, aux = m.apply(tp, {"tokens": torch.as_tensor(toks)},
+                             mode="train")
+    assert cache is None and float(aux) == 0.0
+    assert tl.dtype == torch.float32 and tl.shape == (B, T, 512)
+    close(tl, jl, rtol=1e-4, atol=1e-4)
+
+
+def test_jamba_without_experts_prefill_cache_and_decode_match_the_reference():
+    cfg, jcfg = arch_cfgs(JAMBA, moe=None)
+    jm, m = jbuild(jcfg, max_seq=T), build_model(cfg, max_seq=T)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = _tokens()
+    jl, jc = jax.jit(jsteps.make_prefill_step(jm, T))(
+        jp, {"tokens": jnp.asarray(toks[:, :T0])})
+    tl, tc = steps.make_prefill_step(m, T)(
+        tp, {"tokens": torch.as_tensor(toks[:, :T0])})
+    close(tl, jl, rtol=1e-4, atol=1e-4)
+    assert tree.structure(tc) == tree.structure(jax.tree.map(lambda _: None, jc))
+    for i, kind in enumerate(cfg.block_pattern):
+        g, w = tc[f"sub{i}"], jc[f"sub{i}"]
+        if kind == "mamba":
+            for name in ("h", "conv"):
+                assert g[name].dtype == torch.float32
+                close(g[name], w[name], rtol=1e-4, atol=1e-4)
+        else:
+            assert g["k"].dtype == torch.bfloat16
+            close(g["k"], w["k"], rtol=2 ** -7, atol=0)
+    jstep = jax.jit(jsteps.make_serve_step(jm))
+    tstep = steps.make_serve_step(m)
+    for t in range(T0, T):
+        jl, jc = jstep(jp, jnp.asarray(toks[:, t:t + 1]), jc, jnp.int32(t))
+        tl, tc = tstep(tp, torch.as_tensor(toks[:, t:t + 1]), tc, t)
+        close(tl, jl, rtol=0, atol=1e-2)
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "mamba":
+            for name in ("h", "conv"):
+                close(tc[f"sub{i}"][name], jc[f"sub{i}"][name], rtol=1e-3,
+                      atol=1e-3)
+
+
+def test_jamba_without_experts_decode_equals_the_full_forward():
+    """The reference's tests/test_decode_equivalence.py property on the
+    port: prefill T0 tokens, decode the rest, against one full forward."""
+    cfg, _ = arch_cfgs(JAMBA, moe=None)
+    m = build_model(cfg, max_seq=T)
+    tp = m.init(R.PRNGKey(0, "cpu"))
+    toks = torch.as_tensor(_tokens())
+    full, _, _ = m.apply(tp, {"tokens": toks}, mode="train")
+    cache = m.cache_init(B, T, device="cpu")
+    _, cache, _ = m.apply(tp, {"tokens": toks[:, :T0]}, mode="prefill",
+                          cache=cache)
+    for t in range(T0, T):
+        logits, cache, _ = m.apply(tp, {"tokens": toks[:, t:t + 1]},
+                                   mode="decode", cache=cache, cache_pos=t)
+        close(logits[:, 0], full[:, t], rtol=2e-2, atol=2e-2)
+
+
+def test_jamba_with_experts_still_raises_on_moe():
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
+        build_model(configs.get_arch("jamba-v0.1-52b").reduced())
