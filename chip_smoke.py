@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. environment: Python, torch and CUDA versions, the card's name and
    power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles every kernel from ``src/repro_torch/csrc`` for
-   sm_90a (one process per source, all started together);
+   sm_90a (one process per source, all started together), with each
+   source's build time;
 3. ``bwo_evolve`` against its plain PyTorch version on the card, at the FL
    path's shapes and two small ones, in float32 and bfloat16, with the
    kernel's and the plain version's times and the bound;
@@ -22,14 +23,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. ``flash_attention`` against its plain PyTorch version on the card, at
    OLMo-1B's and Jamba's prefill and decode shapes (16 heads on 16 KV
    heads; 32 on 8), the reference's test cases in float32 and bfloat16, a
-   windowed and a mixed-type (float32 queries, bf16 cache) shape, with the
-   kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   times and the bound at the four serving shapes;
+   windowed and a mixed-type (float32 queries, bf16 cache) shape, each on
+   the route ``flash_attention.route`` names for it (tensor cores, split-K
+   or CUDA cores), with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times and the bound at the four
+   serving shapes;
 8. the serving path at full width and depth: ``serve(get_arch("olmo-1b"),
    batch=4, prompt_len=1024, gen=32, temperature=1.0, device="cuda")``,
-   with every launch counter set to 0 just before and read just after;
-   the same call again (warm); then a prefill alone and one decode step
-   split into the model and the sampling;
+   with every launch counter set to 0 just before and read just after
+   (flash_attention: 16 calls on the tensor-core route, 496 on split-K,
+   none on the CUDA cores); the same call again (warm); then a prefill
+   alone and one decode step split into the model and the sampling;
 9. serving olmo-1b ``.reduced()`` on the card against the port's CPU
    route, greedy;
 10. ``ssm_scan`` against its plain PyTorch version on the card, at the
@@ -42,11 +46,17 @@ Phases, each printing its own lines; any failure exits non-zero:
     experts, ``serve(dataclasses.replace(get_arch("jamba-v0.1-52b"),
     moe=None), batch=4, prompt_len=1024, gen=32, temperature=1.0,
     device="cuda")``, with every launch counter set to 0 just before and
-    read just after; then, on one drawing of the weights, the parameter
-    count, a prefill alone and one decode step split into the model and
-    the sampling, each with both kernels' share;
+    read just after (flash_attention: 4 tensor-core and 124 split-K
+    calls, none on the CUDA cores); then, on one drawing of the weights,
+    the parameter count, a prefill alone and one decode step split into
+    the model and the sampling, each with both kernels' share;
 12. serving Jamba without experts ``.reduced()`` on the card against the
-    port's CPU route, greedy.
+    port's CPU route, greedy;
+13. the bf16 routes inside a model (phases 9 and 12 run float32 weights,
+    which take the CUDA-core route): olmo-1b ``.reduced()`` with bfloat16
+    weights served greedily through the kernels and again with
+    ``flash_attention_ref`` in the kernels' place, and full-width OLMo-1B's
+    prefill logits both ways.
 
 It then prints one JSON line describing every ported kernel, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -82,6 +92,7 @@ CARDS = {"H100 PCIe": (2.0e12, 51e12, None, None),
          "H200": (4.8e12, 67e12, 989e12, 132 * 16 * 1.98e9)}
 
 FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
+SPIN_CYCLES = 2_000_000      # ~1 ms of the device's clock (time_ms's spin)
 
 # flash_attention checks: B, Sq, Sk, H, KV, hd, causal, window, q_offset,
 # kv_len, q dtype, k/v dtype.  The tolerance goes by q's dtype: f32, sums in
@@ -96,7 +107,8 @@ JAMBA_ATTN_DECODE = (4, 1, 1056, 32, 8, 128, False, None, 0, 1040, BF16, BF16)
 TEST_CASES = [(2, 256, 256, 4, 2, 64, True, None), (1, 512, 512, 4, 4, 128, True, 128),
               (2, 128, 128, 8, 1, 32, False, None), (1, 300, 300, 2, 2, 80, True, None),
               (1, 256, 256, 4, 4, 128, True, 64)]
-# the timed shapes; the kernels line carries the first
+# the timed shapes; the kernels line carries each, its top-level times the
+# first
 FA_TIMED = (("olmo prefill", OLMO_PREFILL), ("olmo decode", OLMO_DECODE),
             ("jamba prefill", JAMBA_ATTN_PREFILL),
             ("jamba decode", JAMBA_ATTN_DECODE))
@@ -145,9 +157,12 @@ def card_rates(name):
     raise RuntimeError(f"no memory/compute rates recorded for {name!r}")
 
 
-def time_ms(torch, fn, reps=20, warmup=3, flush=None):
+def time_ms(torch, fn, reps=20, warmup=3, flush=None, spin=False):
     """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up;
-    ``flush`` runs before each, outside the timing."""
+    ``flush`` runs before each, outside the timing.  ``spin``: the device
+    spins ~1 ms before each start event, so the host has enqueued ``fn``'s
+    launches by the time it starts and the events time the device's work,
+    not the host's (a kernel's time; a step's time keeps the host in)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -155,6 +170,8 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -167,16 +184,17 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None):
 
 def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
     """Times ``kernel``, its plain version and the library call (None
-    where there is none), each launch with a cold L2 (a 256 MB buffer is
-    written before it, as a layer finds the cache after the others), and
-    bounds the kernel by the larger of ``nbytes`` at ``mem_rate`` and each
-    (count, rate) of ``ops``.  Prints the numbers and returns them as the
-    kernels line's keys."""
+    where there is none) on the device, each launch with a cold L2 (a 256
+    MB buffer is written before it, as a layer finds the cache after the
+    others), and bounds the kernel by the larger of ``nbytes`` at
+    ``mem_rate`` and each (count, rate) of ``ops``.  Prints the numbers and
+    returns them as the kernels line's keys."""
     scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
-    ms = time_ms(torch, kernel, flush=flush)
-    plain_ms = time_ms(torch, plain, reps=3, warmup=1, flush=flush)
-    lib_ms = None if library is None else time_ms(torch, library, flush=flush)
+    ms = time_ms(torch, kernel, flush=flush, spin=True)
+    plain_ms = time_ms(torch, plain, reps=3, warmup=1, flush=flush, spin=True)
+    lib_ms = (None if library is None
+              else time_ms(torch, library, flush=flush, spin=True))
     del scratch
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = max(n / rate * 1e3 for n, rate in ops)
@@ -191,10 +209,38 @@ def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
             "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def timer_check(torch, fa_kernel, route, kernel, sdpa):
+    """Times the route's kernel, the CUDA-core kernel (the only route
+    before the tensor-core and split-K ones) and SDPA with and without
+    time_ms's spin, cold L2 as timed_entry's, so a reading of either timer
+    can be set beside the other's.  The CUDA-core kernel is reached by
+    pointing the wrapper's ``route`` at it for these launches."""
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    routed = fa_kernel.route
+
+    def cuda_core():
+        fa_kernel.route = lambda *a, **kw: "cuda_core"
+        try:
+            return kernel()
+        finally:
+            fa_kernel.route = routed
+
+    got = {}
+    for name, fn in ((route, kernel), ("cuda_core", cuda_core),
+                     ("sdpa", sdpa)):
+        got[name] = [time_ms(torch, fn, reps=10 if name == "cuda_core" else 20,
+                             flush=scratch.zero_, spin=spin)
+                     for spin in (True, False)]
+    del scratch
+    print("    timer check, ms with spin / without: " + ", ".join(
+        f"{name} {a:.4f} / {b:.4f}" for name, (a, b) in got.items()))
+
+
 def flash_phase(torch, mem_rate, bf16_rate):
     """Phase 7.  Returns the kernel's entry of the kernels line (all but
     its launches) and its times at the FA_TIMED shapes, by label."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     print("== 7. flash_attention against its plain version on the card")
     dtypes = {F32: torch.float32, BF16: torch.bfloat16}
@@ -206,24 +252,29 @@ def flash_phase(torch, mem_rate, bf16_rate):
         k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
                 .to(dtypes[kvdt]) for _ in range(2))
         kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        route = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
+        before = dict(fa_kernel.route_launches)
         got = fa_ops.flash_attention(q, k, v, **kw)
         want = fa_ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = FA_TOL[qdt]
-        ok = (got.dtype == q.dtype and got.shape == q.shape
+        took = [r for r in fa_kernel.ROUTES
+                if fa_kernel.route_launches[r] != before[r]]
+        ok = (got.dtype == q.dtype and got.shape == q.shape and took == [route]
               and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
         print(f"  B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
               f"window={window} q_offset={q_offset} kv_len={kv_len} q {qdt} "
-              f"kv {kvdt}: max_abs_err {err:.3e} (tol {tol}) "
+              f"kv {kvdt}, route {took}: max_abs_err {err:.3e} (tol {tol}) "
               f"{'ok' if ok else 'FAILED'}")
-        check(ok and math.isfinite(err), f"flash_attention disagrees at {shape}")
+        check(ok and math.isfinite(err), f"flash_attention disagrees at {shape} "
+              f"or left its route {route}")
         max_err = max(max_err, err)
         inputs[shape] = (q, k, v, kw)
 
     # times at the serving paths' shapes, against the bound and two
     # yardsticks: the plain version and scaled_dot_product_attention
-    times, entry = {}, None
+    times, shapes = {}, {}
     for label, shape in FA_TIMED:
         B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = shape[:10]
         q, k, v, kw = inputs[shape]
@@ -248,11 +299,18 @@ def flash_phase(torch, mem_rate, bf16_rate):
             torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
             lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
             nbytes, [(flops, bf16_rate)], mem_rate)
+        timed["route"] = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
         times[label] = timed["ms"]
-        if entry is None:
-            entry = {"max_abs_err": max_err, **timed}
+        shapes[label] = timed
+        timer_check(torch, fa_kernel, timed["route"],
+                    lambda: fa_ops.flash_attention(q, k, v, **kw), sdpa)
     del inputs
     torch.cuda.empty_cache()
+    first = shapes[FA_TIMED[0][0]]
+    entry = {"max_abs_err": max_err,
+             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+             "shapes": shapes}
     return entry, times
 
 
@@ -260,9 +318,26 @@ def read_counts(counters):
     return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in counters}
 
 
+def reset_counts(counters):
+    """Every launch counter to 0, flash_attention's per-route ones too."""
+    for k in counters:
+        k.launches = 0
+        if hasattr(k, "route_launches"):
+            k.route_launches.update(dict.fromkeys(k.route_launches, 0))
+
+
+def check_routes(got, want, where):
+    """flash_attention's calls by route on a serving path."""
+    print(f"  flash_attention routes {got} (expected {want})")
+    check(got == want, f"flash_attention's routes on {where}: {got}, "
+          f"expected {want}")
+
+
 def serve_phase(torch, counters, decode_kernel_ms):
-    """Phase 8.  Returns flash_attention's launches on the serving path."""
+    """Phase 8.  Returns flash_attention's launches on the serving path and
+    their count by route."""
     from repro_torch import random
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -272,11 +347,11 @@ def serve_phase(torch, counters, decode_kernel_ms):
     check(cfg.num_params() == 1_176_764_416, f"olmo-1b has {cfg.num_params()}")
     B, P, G = 4, 1024, 32
     torch.cuda.reset_peak_memory_stats()
-    for k in counters:
-        k.launches = 0
+    reset_counts(counters)
     res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
                 device="cuda")
     launches = read_counts(counters)
+    routes = dict(fa_kernel.route_launches)
     peak = torch.cuda.max_memory_allocated()
     want = cfg.num_layers * (1 + (G - 1))
     print(f"  {cfg.num_params():,} parameters, {cfg.param_dtype}; launches "
@@ -291,6 +366,9 @@ def serve_phase(torch, counters, decode_kernel_ms):
           f"expected {want}")
     check(launches["bwo_evolve"] == 0 and launches["ssm_scan"] == 0,
           "the dense serving path ran bwo_evolve or ssm_scan")
+    check_routes(routes, {"tensor_core": cfg.num_layers,
+                          "split_k": cfg.num_layers * (G - 1),
+                          "cuda_core": 0}, "the OLMo-1B serving path")
     toks = res.tokens
     check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -336,7 +414,7 @@ def serve_phase(torch, counters, decode_kernel_ms):
           f"over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
     del params, cache, logits
     torch.cuda.empty_cache()
-    return launches["flash_attention"]
+    return launches["flash_attention"], routes
 
 
 def serve_card_vs_cpu(torch):
@@ -448,8 +526,10 @@ def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
 
 
 def jamba_phase(torch, counters, ssm_times, fa_times):
-    """Phase 11.  Returns ssm_scan's launches on the hybrid serving path."""
+    """Phase 11.  Returns ssm_scan's launches on the hybrid serving path and
+    flash_attention's count by route."""
     from repro_torch import random, tree
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -461,11 +541,11 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
     n_attn = cfg.num_layers - n_mamba
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in counters:
-        k.launches = 0
+    reset_counts(counters)
     res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
                 device="cuda")
     launches = read_counts(counters)
+    routes = dict(fa_kernel.route_launches)
     peak = torch.cuda.max_memory_allocated()
     want_ssm, want_fa = n_mamba * G, n_attn * G
     print(f"  {cfg.num_layers} layers ({n_mamba} mamba, {n_attn} attn), d "
@@ -482,6 +562,8 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {want_fa}")
     check(launches["bwo_evolve"] == 0, "the serving path ran bwo_evolve")
+    check_routes(routes, {"tensor_core": n_attn, "split_k": n_attn * (G - 1),
+                          "cuda_core": 0}, "the Jamba serving path")
     toks = res.tokens
     check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -539,7 +621,7 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
           f"categorical over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
     del params, cache, logits
     torch.cuda.empty_cache()
-    return launches["ssm_scan"]
+    return launches["ssm_scan"], routes
 
 
 def jamba_card_vs_cpu(torch):
@@ -560,6 +642,93 @@ def jamba_card_vs_cpu(torch):
           f"{on_cpu.logits.abs().max().item():.1f})")
     check(same, "card and CPU routes served different tokens")
     check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
+
+
+def bf16_model_phase(torch):
+    """Phase 13: the bf16 routes inside a model, against the same model with
+    ``flash_attention_ref`` put in the kernels' place by this script (the
+    package has no switch).  Both run bf16 weights, activations and cache:
+    they differ only where the kernels round P to bf16 before P V and sum
+    in another order, about one bf16 step (2^-8 relative) of an attention
+    output, which the layers carry on to the logits.  Tolerance: the last
+    logits within 2^-6 of their largest magnitude (2 bf16 steps there; about
+    3x the largest difference read on an H100, at full width, and 10x the
+    reduced model's), the greedy tokens equal, and the full-width prefill's
+    last-position logits within the same bound with the same argmax.  The
+    runs with flash_attention_ref in the kernels' place must launch no
+    kernel, and the full-width prefill through the kernels one tensor-core
+    call a layer."""
+    from repro_torch import random
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import build_model
+    print("== 13. the bf16 routes inside a model, against flash_attention_ref")
+    kernel_fn = attention.fa_ops.flash_attention
+
+    def counts():
+        return fa_kernel.launches, dict(fa_kernel.route_launches)
+
+    def with_ref(fn):
+        before = counts()
+        attention.fa_ops.flash_attention = fa_ref.flash_attention_ref
+        try:
+            out = fn()
+        finally:
+            attention.fa_ops.flash_attention = kernel_fn
+        check(counts() == before, "the run with flash_attention_ref in the "
+              "kernels' place launched a kernel")
+        return out
+
+    def compare(what, got, want, tokens_equal):
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = tokens_equal and math.isfinite(diff) and diff <= scale / 64
+        print(f"  {what}: tokens {'equal' if tokens_equal else 'DIFFER'}, "
+              f"logits max diff {diff:.3e} (tol {scale / 64:.3e} = 2^-6 x "
+              f"max |logits| {scale:.2f}) {'ok' if ok else 'FAILED'}")
+        check(ok, f"{what}: the kernels and flash_attention_ref disagree")
+
+    cfg = dataclasses.replace(get_arch("olmo-1b").reduced(),
+                              param_dtype=torch.bfloat16)
+    for window in (None, 6):
+        kw = dict(batch=2, prompt_len=128, gen=8, temperature=0.0,
+                  window=window, device="cuda")
+        before = dict(fa_kernel.route_launches)
+        got = serve(cfg, **kw)
+        used = {r: fa_kernel.route_launches[r] - before[r]
+                for r in fa_kernel.ROUTES}
+        want = with_ref(lambda: serve(cfg, **kw))
+        expect = {"tensor_core": cfg.num_layers, "split_k": cfg.num_layers * 7,
+                  "cuda_core": 0}
+        print(f"  olmo-1b reduced, bf16, window {window}: routes {used} "
+              f"(expected {expect})")
+        check(used == expect, f"the bf16 model took routes {used}")
+        compare(f"olmo-1b reduced bf16, window {window}", got.logits.float(),
+                want.logits.float(), bool((got.tokens == want.tokens).all()))
+
+    cfg = get_arch("olmo-1b")
+    dev = torch.device("cuda")
+    model = build_model(cfg, max_seq=1024)
+    params = model.init(random.PRNGKey(0, dev))
+    prompts = random.randint(random.PRNGKey(1, dev), (4, 1024), 0,
+                             cfg.vocab_size)
+    prefill = make_prefill_step(model, 1024)
+    before = counts()
+    got, _ = prefill(params, {"tokens": prompts})
+    used = {r: fa_kernel.route_launches[r] - before[1][r]
+            for r in fa_kernel.ROUTES}
+    check(used == {"tensor_core": cfg.num_layers, "split_k": 0, "cuda_core": 0},
+          f"the full-width bf16 prefill took routes {used}")
+    want, _ = with_ref(lambda: prefill(params, {"tokens": prompts}))
+    compare("olmo-1b full width, prefill (4 x 1024), last position",
+            got.float(), want.float(),
+            bool((got.argmax(-1) == want.argmax(-1)).all()))
+    del params, got, want
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -597,14 +766,23 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build --
     print("== 2. build")
-    builds = {"bwo_evolve": bwo_kernel.build, "flash_attention": fa_kernel.build,
+    builds = {"bwo_evolve": bwo_kernel.build,
+              "flash_attention, CUDA cores":
+                  lambda: fa_kernel.build(fa_kernel.SOURCE),
+              "flash_attention, tensor cores and split-K":
+                  lambda: fa_kernel.build(fa_kernel.HOPPER_SOURCE),
               "ssm_scan": ssm_kernel.build}
+
+    def timed_build(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        futures = {k: pool.submit(fn) for k, fn in builds.items()}
+        futures = {k: pool.submit(timed_build, fn) for k, fn in builds.items()}
         libs = {k: f.result() for k, f in futures.items()}
-    for k, lib in libs.items():
-        print(f"built {k}: {lib.relative_to(ROOT)}")
+    for k, (lib, secs) in libs.items():
+        print(f"built {k}: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"build seconds {time.perf_counter() - t0:.2f}")
 
     # ------------------------------------- 3. kernels vs plain versions --
@@ -698,8 +876,7 @@ def main() -> int:
     cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
                    device="cuda", max_rounds=3, tau=1.01)
     exp = build_experiment(cfg)
-    for k in counters:
-        k.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     result = exp.run(verbose=True)
     wall = time.perf_counter() - t0
@@ -764,11 +941,14 @@ def main() -> int:
               "card and CPU routes disagree beyond 1e-4")
 
     fa, fa_times = flash_phase(torch, mem_rate, bf16_rate)
-    serve_launches = serve_phase(torch, counters, fa_times["olmo decode"])
+    serve_launches, olmo_routes = serve_phase(torch, counters,
+                                              fa_times["olmo decode"])
     serve_card_vs_cpu(torch)
     ssm, ssm_times = ssm_phase(torch, mem_rate, f32_rate, exp_rate)
-    jamba_launches = jamba_phase(torch, counters, ssm_times, fa_times)
+    jamba_launches, jamba_routes = jamba_phase(torch, counters, ssm_times,
+                                               fa_times)
     jamba_card_vs_cpu(torch)
+    bf16_model_phase(torch)
 
     # --------------------------------------------------------- results --
     kernels = [{
@@ -779,9 +959,14 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_hopper.cu",
+        "sources": {"tensor_core": "src/repro_torch/csrc/flash_attention_hopper.cu",
+                    "split_k": "src/repro_torch/csrc/flash_attention_hopper.cu",
+                    "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "launches": serve_launches, **fa}, {
+        "launches": serve_launches,
+        "route_launches": {"olmo-1b": olmo_routes,
+                           "jamba without experts": jamba_routes}, **fa}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",

@@ -112,6 +112,123 @@ def test_flash_attention_kernel_reads_strided_views(dtype):
                                    atol=tol)
 
 
+# The bf16 routes.  B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len.
+# Tensor cores: hd 64 and 128, rep 1, 2, 4 and 8, Sq 17 and 40 (a tile
+# whose second warpgroup has no rows), 64, 300 (ragged) and 1024, causal
+# with q_offset (chunked prefill against a longer K/V), a window, per-row
+# lengths.  Tolerance 3e-2, FA_DTYPES' bf16 one.
+TC_CASES = [
+    (2, 17, 40, 4, 2, 64, True, None, 23, None),
+    (3, 40, 200, 8, 4, 128, True, 96, 160, [200, 190, 170]),
+    (2, 64, 64, 4, 4, 64, True, None, 0, None),
+    (2, 64, 200, 8, 1, 128, True, None, 136, None),
+    (1, 300, 300, 4, 2, 128, True, None, 0, None),
+    (1, 300, 300, 8, 2, 64, False, None, 0, None),
+    (2, 1024, 1024, 8, 1, 64, True, None, 0, None),
+    (1, 1024, 1024, 16, 4, 128, True, 256, 0, None),
+    (2, 300, 400, 4, 4, 128, True, 64, 100, [380, 340]),
+    (4, 1024, 1024, 32, 8, 128, True, None, 0, None),
+]
+# Split-K: (B,) lengths with rows shorter than one chunk and rows equal to
+# Sk, 1 to 16 queries, rep up to 8, windows with q_offset
+SPLIT_CASES = [
+    (3, 1, 40, 4, 2, 64, False, None, 0, [23, 40, 1]),
+    (4, 1, 1056, 16, 16, 128, False, None, 0, [1056, 30, 1040, 64]),
+    (4, 1, 1056, 32, 8, 128, False, None, 0, [1025, 1056, 7, 700]),
+    (2, 1, 100, 4, 4, 128, True, 16, 70, None),
+    (2, 5, 300, 8, 2, 64, True, None, 290, [300, 40]),
+    (2, 16, 200, 16, 2, 128, True, 50, 150, None),
+    (1, 9, 3000, 8, 1, 64, True, 1000, 2990, None),
+]
+
+
+def _lens(kv_len):
+    if isinstance(kv_len, list):
+        return torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return kv_len
+
+
+def _run_route(case, route, seed):
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = case
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, torch.bfloat16, seed)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=_lens(kv_len))
+    before = dict(fa_kernel.route_launches)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {r: fa_kernel.route_launches[r] - before[r]
+            for r in fa_kernel.ROUTES} == {r: int(r == route)
+                                           for r in fa_kernel.ROUTES}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_attention_tensor_core_route(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _run_route(case, "tensor_core", sum(case[:6]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_flash_attention_split_k_route(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _run_route(case, "split_k", sum(case[:6]))
+
+
+@pytest.mark.cuda
+def test_flash_attention_split_k_reads_the_windowed_decode_views():
+    """The sliding-window decode passes ``_slice_at``'s windows: a narrowed
+    view of the cache (one start) and a gather (per-row starts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.models.attention import _slice_at
+    q, k, v = _qkv(3, 1, 96, 8, 2, 128, torch.bfloat16, torch.bfloat16, 17)
+    win = 24
+    for start, kv_len in ((50, win), (torch.tensor([0, 40, 72], device="cuda"),
+                                      torch.tensor([10, 24, 24], device="cuda",
+                                                   dtype=torch.int32))):
+        kk, vv = _slice_at(k, start, win), _slice_at(v, start, win)
+        before = fa_kernel.route_launches["split_k"]
+        got = fa_ops.flash_attention(q, kk, vv, causal=False, kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert fa_kernel.route_launches["split_k"] == before + 1
+        want = fa_ref.flash_attention_ref(q, kk, vv, causal=False,
+                                          kv_len=kv_len)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_the_other_calls_to_the_cuda_cores():
+    """float32, hd 32 and 80, and bf16 prefill whose strides TMA cannot
+    read stay on the CUDA-core kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    bf = torch.bfloat16
+    q, k, v = _qkv(1, 40, 40, 2, 2, 64, bf, bf, 3)
+    k_odd = torch.zeros(1, 40, 2, 65, dtype=bf, device="cuda")[..., :64]
+    k_odd.copy_(k)
+    calls = [(q, k_odd, v), (q.float(), k.float(), v.float()),
+             (q.float(), k, v)] + [
+        _qkv(1, 40, 40, 2, 2, hd, bf, bf, hd) for hd in (32, 80)]
+    for qq, kk, vv in calls:
+        before = dict(fa_kernel.route_launches)
+        got = fa_ops.flash_attention(qq, kk, vv, causal=True)
+        torch.cuda.synchronize()
+        assert fa_kernel.route_launches["cuda_core"] == before["cuda_core"] + 1
+        assert fa_kernel.route_launches["tensor_core"] == before["tensor_core"]
+        tol = 3e-2 if qq.dtype == bf else 2e-5
+        want = fa_ref.flash_attention_ref(qq, kk, vv, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 # B, S, D, N, with_h0: the reference's kernel cases (tests/test_kernels.py),
 # one decode step, ragged channel tiles, and Jamba's prefill and decode
 SSM_CASES = [
