@@ -27,7 +27,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the route ``flash_attention.route`` names for it (tensor cores, split-K
    or CUDA cores), with the kernel's, the plain version's and
    ``scaled_dot_product_attention``'s times and the bound at the four
-   serving shapes;
+   serving shapes, and at the two decode shapes a second reading of the
+   kernel and SDPA after a flush that leaves L2 clean;
 8. the serving path at full width and depth: ``serve(get_arch("olmo-1b"),
    batch=4, prompt_len=1024, gen=32, temperature=1.0, device="cuda")``,
    with every launch counter set to 0 just before and read just after
@@ -41,7 +42,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     state updated in place (h_out aliased to h0) and Jamba's prefill
     shape, with A drawn as the reference's tests draw it and as the mamba
     initialisation sets it; the kernel's and the plain version's times and
-    the bound at Jamba's prefill and decode shapes;
+    the bound at Jamba's prefill and decode shapes, and a second reading of
+    the kernel after a flush that leaves L2 clean;
 11. the hybrid serving path at full width and depth: Jamba without its
     experts, ``serve(dataclasses.replace(get_arch("jamba-v0.1-52b"),
     moe=None), batch=4, prompt_len=1024, gen=32, temperature=1.0,
@@ -182,13 +184,17 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None, spin=False):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
+def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate,
+                clean=False):
     """Times ``kernel``, its plain version and the library call (None
     where there is none) on the device, each launch with a cold L2 (a 256
     MB buffer is written before it, as a layer finds the cache after the
     others), and bounds the kernel by the larger of ``nbytes`` at
     ``mem_rate`` and each (count, rate) of ``ops``.  Prints the numbers and
-    returns them as the kernels line's keys."""
+    returns them as the kernels line's keys.  ``clean``: the kernel and the
+    library call are timed again after a flush that leaves L2 clean (a 256
+    MB buffer read, never written while timing), so the write flush's dirty
+    lines, written back during the timed launch, can be told from it."""
     scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
     ms = time_ms(torch, kernel, flush=flush, spin=True)
@@ -196,6 +202,23 @@ def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
     lib_ms = (None if library is None
               else time_ms(torch, library, flush=flush, spin=True))
     del scratch
+    extra = {}
+    if clean:
+        readable = torch.ones(64 * 2**20, device="cuda")        # 256 MB
+
+        def read_flush():
+            readable.sum()
+
+        extra["clean_flush_ms"] = time_ms(torch, kernel, flush=read_flush,
+                                          spin=True)
+        if library is not None:
+            extra["library_clean_flush_ms"] = time_ms(
+                torch, library, flush=read_flush, spin=True)
+        del readable
+        lib = ("" if library is None else
+               f", library {extra['library_clean_flush_ms']:.4f} ms")
+        print(f"    after a clean (read) flush: kernel "
+              f"{extra['clean_flush_ms']:.4f} ms{lib}")
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = max(n / rate * 1e3 for n, rate in ops)
     bound_ms = max(bytes_ms, ops_ms)
@@ -206,7 +229,7 @@ def timed_entry(torch, kernel, plain, library, nbytes, ops, mem_rate):
           f"operations {ops_ms:.4f} ms); kernel at {bound_ms / ms:.1%} of "
           f"bound, {nbytes / ms / 1e6:.1f} GB/s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_by": bound_by, "library_ms": lib_ms, **extra}
 
 
 def timer_check(torch, fa_kernel, route, kernel, sdpa):
@@ -298,7 +321,7 @@ def flash_phase(torch, mem_rate, bf16_rate):
         timed = timed_entry(
             torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
             lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
-            nbytes, [(flops, bf16_rate)], mem_rate)
+            nbytes, [(flops, bf16_rate)], mem_rate, clean=Sq == 1)
         timed["route"] = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
         times[label] = timed["ms"]
         shapes[label] = timed
@@ -502,7 +525,7 @@ def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
           f"{'ok' if ok else 'FAILED'}")
     check(ok, "ssm_scan with h_out aliased to h0 disagrees")
 
-    times, entry = {}, None
+    times, shapes = {}, {}
     for label, shape in (("prefill", JAMBA_PREFILL), ("decode", JAMBA_DECODE)):
         B, S, D, N, _ = shape
         x, dt, A, Bc, Cc, h0 = inputs[shape]
@@ -513,15 +536,20 @@ def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
         print(f"  {label} {shape}: {nbytes / 1e6:.1f} MB, {exps / 1e6:.1f} "
               f"M exp, {SSM_FLOPS * exps / 1e9:.2f} GFLOP fp32")
         timed = timed_entry(
-            torch, lambda: ssm_kernel.ssm_scan_cuda(x, dt, A, Bc, Cc, out,
-                                                    h_out=out),
-            lambda: ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0), None,
-            nbytes, [(exps, exp_rate), (SSM_FLOPS * exps, f32_rate)], mem_rate)
+            torch,
+            lambda: ssm_kernel.ssm_scan_cuda(x, dt, A, Bc, Cc, out, h_out=out),
+            lambda: ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0),
+            None, nbytes, [(exps, exp_rate), (SSM_FLOPS * exps, f32_rate)],
+            mem_rate, clean=True)
         times[label] = timed["ms"]
-        if entry is None:               # the kernels line carries the prefill
-            entry = {"max_abs_err": max_err, **timed}
+        shapes[label] = timed
     del inputs
     torch.cuda.empty_cache()
+    prefill = shapes["prefill"]
+    entry = {"max_abs_err": max_err,
+             **{k: prefill[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+             "shapes": shapes}
     return entry, times
 
 

@@ -21,7 +21,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     nvcc = shutil.which("nvcc")
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     if nvcc is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
@@ -48,8 +48,9 @@ def build(source: Path) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
         os.replace(tmp, out)

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package, the kernel module
+"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py``
+or ``tools/`` imports JAX or the JAX package, the kernel module
 imports (and builds nothing) where there is no ``nvcc``, and the modules
 the port copies from the reference stay copies."""
 import ast
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path):

@@ -230,11 +230,18 @@ def test_flash_attention_routes_the_other_calls_to_the_cuda_cores():
 
 
 # B, S, D, N, with_h0: the reference's kernel cases (tests/test_kernels.py),
-# one decode step, ragged channel tiles, and Jamba's prefill and decode
+# one decode step, ragged channel tiles, and Jamba's prefill and decode;
+# then the kernel's edges: D neither a multiple of the 128-channel block
+# nor of 4 (so x and dt come in by 4-byte copies), S of 1 and 3 and a
+# length that is no multiple of the 32-step tile and shorter than the
+# 3-tile ring, one batch row at Jamba's width, and each N at a ragged D
 SSM_CASES = [
     (2, 128, 64, 16, False), (1, 64, 256, 8, True), (2, 96, 32, 16, False),
     (1, 200, 48, 4, True), (4, 1, 8192, 16, True), (3, 77, 40, 8, True),
     (4, 1024, 8192, 16, False),
+    (2, 100, 33, 16, True), (3, 1, 33, 8, True), (2, 3, 200, 16, False),
+    (2, 77, 130, 16, True), (1, 256, 8192, 16, True),
+    (2, 50, 37, 4, True), (2, 50, 129, 8, False), (2, 65, 255, 16, True),
 ]
 
 
@@ -308,3 +315,57 @@ def test_ssm_scan_kernel_raises_on_what_it_does_not_take():
         ssm_ops.ssm_scan(x, dt, A, Bc, Cc, h_out=torch.empty(1, 32, 8,
                                                               device="cuda"))
     assert ssm_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssm_scan_kernel_takes_no_steps(with_h0):
+    """S = 0: y is empty and h is h0 (zeros without one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(2, 0, 40, 8, with_h0, 29)
+    y, h = ssm_ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 40)
+    want = args[5] if with_h0 else torch.zeros(2, 40, 8, device="cuda")
+    assert torch.equal(h, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 70])
+def test_ssm_scan_kernel_takes_unaligned_pointers(S):
+    """Every input a view one float into its storage, so no pointer is
+    16-byte aligned: the kernel takes its 4-byte copies and loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(2, S, 64, 16, True, 17 + S)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda")
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    moved = [shifted(t) for t in args]
+    y, h = ssm_ops.ssm_scan(*moved)
+    torch.cuda.synchronize()
+    want_y, want_h = ssm_ref.ssm_scan_ref(*args)
+    for got, want in ((y, want_y), (h, want_h)):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,N,with_h0", [
+    (4, 1024, 8192, 16, False), (4, 1, 8192, 16, True), (2, 77, 33, 8, True)])
+def test_ssm_scan_kernel_is_deterministic(B, S, D, N, with_h0):
+    """Two launches on the same inputs give the same bits: no atomics, and
+    every sum is taken in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(B, S, D, N, with_h0, 23)
+    y1, h1 = ssm_ops.ssm_scan(*args)
+    y2, h2 = ssm_ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
