@@ -11,15 +11,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    sm_90a (one process per source, all started together), with each
    source's build time;
 3. ``bwo_evolve`` against its plain PyTorch version on the card, at the FL
-   path's shapes and two small ones, in float32 and bfloat16, with the
-   kernel's and the plain version's times and the bound;
+   path's shapes and two small ones, in float32 and bfloat16, and under
+   ``torch.func.vmap`` over 10 clients (one launch over 60 rows of the
+   paper CNN); the kernel's and the plain version's times and the bound at
+   one client's shape and at all clients'; one round's parts (local SGD,
+   seeding, a generation, its bit draws and fitness) for one client and
+   for ten under vmap; 3b. one local-SGD step's gradient of the paper CNN
+   at full width for 10 clients, under vmap and client by client, against
+   float64 on the same inputs and the same ReLU and max-pool decisions,
+   each op of the step also against float64 on its own inputs (within
+   1e-5 of the largest entry, which TF32 fails; 5e-3 for the grouped
+   convolution's backward, where cuDNN runs Winograd), with the step's
+   device kernels by name;
 4. the FL path at full width through the user's entry points:
    ``FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
-   device="cuda", max_rounds=3)`` -> ``build_experiment`` -> ``run``, with
-   every launch counter set to 0 just before and read just after;
-5. one round of the default (composed) FedBWO on the card;
-6. the kernel route on the card against the port's CPU route (the route
-   the tests hold against the JAX reference) on a narrow CNN;
+   device="cuda", max_rounds=3)`` -> ``build_experiment`` -> ``run``, on
+   the engine "auto" picks on the card (batched, vmap: 3 launches a
+   round), with every launch counter set to 0 just before and read just
+   after, and the run's peak device memory; 4b. the same rounds on both
+   engines in turn, each round from a common start (3 and 30 launches a
+   round), held to each other (the same winner; scores and test loss
+   within 1e-2, relative);
+5. one round of the default (composed) FedBWO on each engine, no launch;
+6. the kernel route on the card (batched) against the port's CPU route
+   (sequential, the route the tests hold against the JAX reference) on a
+   narrow CNN; 6b. a Dirichlet (ragged: padded and masked) split at full
+   width, one round on each engine, held to each other; 6c. one FedGWO
+   round at full width on the batched engine;
 7. ``flash_attention`` against its plain PyTorch version on the card, at
    OLMo-1B's and Jamba's prefill and decode shapes (16 heads on 16 KV
    heads; 32 on 8), the reference's test cases in float32 and bfloat16, a
@@ -759,17 +777,569 @@ def bf16_model_phase(torch):
     torch.cuda.empty_cache()
 
 
+def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
+    """bwo_evolve's least time on this card for one launch over P child
+    rows: the distinct parent rows this draw reads, both bit planes and
+    the children (plus the indices and gates), or its operations."""
+    parents = torch.unique(torch.cat([p1, p2])).numel()
+    nbytes = (parents * D * 4 + 2 * P * Dp * 4 + P * D * 4
+              + 2 * P * 4 + P * 4)
+    flops = FLOPS_PER_GENE * P * D
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
+    return (parents, nbytes, flops, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def bwo_phase(torch, mem_rate, f32_rate):
+    """Phase 3.  Returns bwo_evolve's entry of the kernels line, all but
+    its launches: the top-level times are the main path's launch (the
+    batched engine's, C x P rows); ``shapes`` also has one client's."""
+    from repro_torch import random
+    from repro_torch.convert import ravel_params
+    from repro_torch.core.client import ClientHP, make_fitness_fn, make_local_sgd
+    from repro_torch.core.engine import stack_clients
+    from repro_torch.data import loader, synthetic
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
+    from repro_torch.kernels.bwo_evolve import ops as bwo_ops, ref as bwo_ref
+    from repro_torch.metaheuristics.bwo import bwo
+    print("== 3. bwo_evolve against its plain version on the card")
+    dev = torch.device("cuda")
+    vmap = torch.func.vmap
+    C, P, D = 10, 6, 2_465_322      # the main path: 10 clients, pop 6, CNN
+    max_err = 0.0
+    for (p, d) in [(P, D), (16, 4097), (4, 100)]:
+        for dtype, tol in [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]:
+            key = random.PRNGKey(p * 7 + d, dev)
+            pop = random.normal(key, (p, d)).to(dtype)
+            fit = random.uniform(random.split(key)[1], (p,))
+            got = bwo_ops.bwo_evolve(pop, fit, key)
+            want = bwo_ops.bwo_evolve_reference(pop, fit, key)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            print(f"  P={p} D={d} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"(tol {tol}) {'ok' if ok else 'FAILED'}")
+            check(ok and math.isfinite(err), f"bwo_evolve disagrees at "
+                  f"P={p} D={d} {dtype}: max_abs_err {err}")
+            max_err = max(max_err, err)
+
+    # the batched engine's shape: one launch over C clients' P rows, under
+    # torch.func.vmap as the round runs it, against the plain version
+    # under the same vmap
+    keys = random.split(random.PRNGKey(2025, dev), C)
+    pops = torch.stack([random.normal(k, (P, D)) for k in keys])
+    fits = torch.stack([random.uniform(random.split(k)[1], (P,)) for k in keys])
+    before = bwo_kernel.launches
+    got = vmap(bwo_ops.bwo_evolve)(pops, fits, keys)
+    torch.cuda.synchronize()
+    one_launch = bwo_kernel.launches == before + 1
+    want = vmap(bwo_ops.bwo_evolve_reference)(pops, fits, keys)
+    err = (got - want).abs().max().item()
+    ok = one_launch and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    print(f"  vmapped over C={C} clients, P={P} D={D} float32: "
+          f"{bwo_kernel.launches - before} launch, max_abs_err {err:.3e} "
+          f"(tol 1e-05) {'ok' if ok else 'FAILED'}")
+    check(ok and math.isfinite(err), "the vmapped bwo_evolve disagrees "
+          "or took other than one launch")
+    max_err = max(max_err, err)
+    del got, want
+
+    kw = dict(pm_gene=0.1, mut_scale=0.05)
+    shapes = {}
+    # one client's launch (the sequential engine's), timed without a flush
+    # as in earlier runs (its 207 MB are four times L2)
+    key = random.PRNGKey(2024, dev)
+    pop = random.normal(key, (P, D))
+    fit = random.uniform(random.split(key)[1], (P,))
+    pop32, p1, p2, b1, b2, gate = bwo_ops.sample(pop, fit, key, pm=0.4,
+                                                 procreate_frac=0.6)
+    Dp = b1.shape[1]
+    kernel_ms = time_ms(torch, lambda: bwo_kernel.bwo_evolve_cuda(
+        pop32, p1, p2, b1, b2, gate, **kw))
+    plain_ms = time_ms(torch, lambda: bwo_ref.bwo_evolve_ref(
+        pop32, p1, p2, b1, b2, gate, **kw))
+    parents, nbytes, flops, bound_ms, bound_by = bwo_bound(
+        torch, p1, p2, P, D, Dp, mem_rate, f32_rate)
+    print(f"  one client, P={P} D={D} Dp={Dp}: {parents} distinct parent "
+          f"rows, {nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP")
+    print(f"  kernel {kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {bound_ms:.4f} ms ({bound_by})  "
+          f"kernel at {bound_ms / kernel_ms:.1%} of bound")
+    shapes["one client (sequential engine)"] = {
+        "rows": P, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    del pop32, b1, b2
+
+    # all clients' launch (the batched engine's): the draws as vmap makes
+    # them, the rows folded as the op's vmap rule folds them
+    drawn = vmap(lambda p_, f_, k_: bwo_ops.sample(
+        p_, f_, k_, pm=0.4, procreate_frac=0.6))(pops, fits, keys)
+    offset = (torch.arange(C, dtype=torch.int32, device=dev) * P)[:, None]
+    pop32 = drawn[0].reshape(C * P, D)
+    p1, p2 = ((i + offset).reshape(C * P) for i in drawn[1:3])
+    b1, b2 = (b.reshape(C * P, Dp) for b in drawn[3:5])
+    gate = drawn[5].reshape(C * P, 1)
+    del drawn
+    parents, nbytes, flops, _, _ = bwo_bound(torch, p1, p2, C * P, D, Dp,
+                                             mem_rate, f32_rate)
+    print(f"  all clients, {C} x {P} = {C * P} rows of D={D}: {parents} "
+          f"distinct parent rows, {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e6:.1f} MFLOP")
+    timed = timed_entry(
+        torch, lambda: bwo_kernel.bwo_evolve_cuda(pop32, p1, p2, b1, b2,
+                                                  gate, **kw),
+        lambda: bwo_ref.bwo_evolve_ref(pop32, p1, p2, b1, b2, gate, **kw),
+        None, nbytes, [(flops, f32_rate)], mem_rate)
+    shapes["all clients (batched engine)"] = {"rows": C * P, **timed}
+    del pop32, b1, b2, pops
+
+    # one round's parts on each engine, at full width: local SGD (2
+    # epochs of 10 batches of 10), the population's seeding, and one
+    # kernel-route generation split into the two threefry bit draws, the
+    # kernel and the children's fitness; one client (the sequential
+    # engine's unit) and all ten under vmap (the batched engine's)
+    task = synthetic.cnn_task()
+    train, _ = synthetic.make_cifar_like(random.PRNGKey(42, dev), 1000, 10)
+    data = stack_clients(loader.client_batches(
+        partition_iid(random.PRNGKey(1, dev), train, C), 10))
+    one = {k: v[0] for k, v in data.items()}
+    params = task.init_params(random.PRNGKey(7, dev))
+    sgd = make_local_sgd(task, ClientHP(local_epochs=2))
+    flat, unravel = ravel_params(params)
+    mh = bwo(use_kernel=True)
+
+    def seed(k, x, d):
+        return mh.init(k, x, P, make_fitness_fn(task, d, unravel, 2))
+
+    def generation(k, state, d):
+        return mh.step(k, state, make_fitness_fn(task, d, unravel, 2))
+
+    def fitness(pop_, d):
+        return make_fitness_fn(task, d, unravel, 2)(pop_)
+
+    def bits(k):
+        return random.bits(k, (P, Dp))
+
+    flats = flat[None].expand(C, -1).contiguous()
+    split = {}
+    for label, run, args in (
+            ("one client", lambda f, *a: f(*a), (key, flat, one)),
+            (f"{C} clients under vmap", lambda f, *a: vmap(f)(*a),
+             (keys, flats, data))):
+        k_, x_, d_ = args
+        t = {"local SGD": time_ms(torch, lambda: run(
+            lambda k, d: sgd(params, d, k), k_, d_), reps=3, warmup=1)}
+        with torch.no_grad():
+            t["seeding"] = time_ms(torch, lambda: run(seed, k_, x_, d_),
+                                   reps=3, warmup=1)
+            state = run(seed, k_, x_, d_)
+            t["generation"] = time_ms(
+                torch, lambda: run(generation, k_, state, d_), reps=3,
+                warmup=1)
+            t["two bit draws"] = 2 * time_ms(torch, lambda: run(bits, k_),
+                                             reps=3, warmup=1)
+            t["fitness"] = time_ms(
+                torch, lambda: run(fitness, state["pop"], d_), reps=3,
+                warmup=1)
+        del state
+        t["kernel"] = (kernel_ms if label == "one client" else timed["ms"])
+        total = t["local SGD"] + t["seeding"] + 3 * t["generation"]
+        gen = t["generation"]
+        print(f"  {label}: local SGD {t['local SGD']:.2f} ms, population "
+              f"seeding {t['seeding']:.2f} ms, 3 generations "
+              f"{3 * gen:.2f} ms; sum {total:.2f} ms")
+        print(f"    one generation {gen:.2f} ms: two bit draws "
+              f"{t['two bit draws']:.2f} ms ({t['two bit draws'] / gen:.1%}), "
+              f"kernel {t['kernel']:.4f} ms ({t['kernel'] / gen:.2%}), "
+              f"fitness {t['fitness']:.2f} ms ({t['fitness'] / gen:.1%})")
+        split[label] = t
+    print(f"  one key split (a threefry of ~175 small launches) "
+          f"{time_ms(torch, lambda: random.split(key, 5)):.3f} ms")
+    del data, train, flats
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err,
+            **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "shapes": shapes, "round_split_ms": split}
+
+
+# Phase 3b holds one client step's gradient at full width against float64
+# on the same inputs.  It recomputes each of these float32 ops of the step
+# in float64 from the float32 step's own inputs, as issued under
+# torch.func.vmap (a grouped convolution, a batched product) or per client:
+# the op's own error, apart from any other op's.  Each must be within
+# OP_RTOL of the largest entry of its float64 result, which TF32 (10 bits
+# of mantissa) fails by 35x or more: 3.5e-4 to 1.0e-3 on an H100 80GB
+# HBM3.  One op is held to a limit of its own: a grouped convolution's
+# backward, where cuDNN 9.22 computes conv2a's weight gradient by its
+# non-fused Winograd algorithm on 9x9 tiles, read at 1.17e-3 (1.48e-3
+# with cudnn.deterministic; 2.34e-3 on random inputs of the same shape,
+# tools/conv_wgrad_layouts.py); client by client cuDNN picks another
+# algorithm (3e-7).  So do the conv weights' gradients under vmap.
+# PERF.md, section 6.
+GRAD_OPS = ("convolution", "convolution_backward", "mm", "bmm", "addmm")
+OP_RTOL = 1e-5
+GROUPED_BWD_RTOL = 5e-3
+
+
+def _op_check_mode(torch):
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+
+    def up(a):
+        return (a.double() if isinstance(a, torch.Tensor)
+                and a.dtype == torch.float32 else a)
+
+    class OpCheck(TorchDispatchMode):
+        """Keeps, for each GRAD_OPS call on float32 tensors, its name,
+        groups and error against the float64 op on the same inputs; and
+        the ReLU signs and max-pool picks of every call, to count the
+        decisions two runs took apart.  With ``replay`` (another run's
+        picks, in call order) each ReLU and max pool takes that run's
+        decisions instead of its own."""
+
+        def __init__(self, replay=None):
+            super().__init__()
+            self.ops, self.picks = [], []
+            self.replay = None if replay is None else iter(replay)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if self.replay is not None and name == "relu":
+                # open where that run's was (its backward reads out > 0)
+                out = torch.where(next(self.replay), args[0].abs(), 0.0)
+            elif self.replay is not None and name == "max_pool2d_with_indices":
+                idx = next(self.replay)
+                out = (args[0].flatten(-2).gather(-1, idx.flatten(-2))
+                       .view(idx.shape), idx)
+            else:
+                out = func(*args, **kwargs)
+            if name == "relu":
+                self.picks.append(out > 0)
+            elif name == "max_pool2d_with_indices":
+                self.picks.append(out[1])
+            elif name in GRAD_OPS and args[0].dtype == torch.float32:
+                want = func(*tree_map(up, args), **tree_map(up, kwargs))
+                pairs = (zip(out, want) if isinstance(out, (tuple, list))
+                         else [(out, want)])
+                err = max(((o.double() - w).abs().max()
+                           / w.abs().max().clamp_min(1e-30)).item()
+                          for o, w in pairs if o is not None)
+                groups = {"convolution": 8, "convolution_backward": 9}
+                g = args[groups[name]] if name in groups else 1
+                self.ops.append((name, g, err))
+            return out
+    return OpCheck
+
+
+def grad_phase(torch, strict=True):
+    """Phase 3b.  One local-SGD step's gradient of the paper CNN at full
+    width, 10 clients (the first batch of each, its own dropout key):
+    under ``torch.func.vmap`` as the batched engine takes it and client by
+    client as the sequential one does, each in float32 against the same
+    step in float64 on the same inputs.  Prints each parameter's error
+    (relative to its float64 gradient's largest entry), each checked op's
+    own error (GRAD_OPS), the ReLU and max-pool decisions that float32 and
+    float64 took apart, and the step's device kernels by name.  With
+    ``strict``, fails if an op or a parameter's gradient (against float64
+    taking float32's decisions) is beyond OP_RTOL, or GROUPED_BWD_RTOL for
+    a grouped convolution's backward and the conv weights under vmap.
+    Returns the readings."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random, tree
+    from repro_torch.core.engine import stack_clients
+    from repro_torch.data import loader, synthetic
+    from repro_torch.data.partition import partition_iid
+    print("== 3b. one client step's gradient at full width against float64")
+    dev = torch.device("cuda")
+    C = 10
+    task = synthetic.cnn_task()
+    train, _ = synthetic.make_cifar_like(random.PRNGKey(42, dev), 1000, 10)
+    data = stack_clients(loader.client_batches(
+        partition_iid(random.PRNGKey(1, dev), train, C), 10))
+    batch = {k: v[:, 0] for k, v in data.items()}
+    dkeys = random.split(random.PRNGKey(3, dev), C)
+    params = task.init_params(random.PRNGKey(7, dev))
+
+    def objective(p, b, k):
+        return task.loss_fn(p, {**b, "rng": k})[0]
+
+    grad = torch.func.grad(objective)
+    OpCheck = _op_check_mode(torch)
+
+    def step(dtype, how, replay=None):
+        p = tree.map(lambda a: a.to(dtype), params)
+        b = {"images": batch["images"].to(dtype), "labels": batch["labels"]}
+        with OpCheck(replay) as rec:
+            if how == "vmap":
+                g = torch.func.vmap(grad, in_dims=(None, 0, 0))(p, b, dkeys)
+            else:
+                gs = [grad(p, {k: v[c] for k, v in b.items()}, dkeys[c])
+                      for c in range(C)]
+                g = tree.map(lambda *xs: torch.stack(xs), *gs)
+        torch.cuda.synchronize()
+        return g, rec
+
+    def rel_err(g32, g64):
+        return {f"{layer}.{k}": ((g32[layer][k].double() - g64[layer][k])
+                                 .abs().max() / g64[layer][k].abs().max()
+                                 .clamp_min(1e-30)).item()
+                for layer in sorted(g32) for k in sorted(g32[layer])}
+
+    def show(errs):
+        return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+    out = {}
+    for how, label in (("vmap", "batched (vmap)"),
+                       ("loop", "sequential (client by client)")):
+        g32, rec32 = step(torch.float32, how)
+        g64, rec64 = step(torch.float64, how)
+        same, _ = step(torch.float64, how, replay=rec32.picks)
+        free, leaf = rel_err(g32, g64), rel_err(g32, same)
+        ops = {}
+        for name, g, err in rec32.ops:
+            k = f"{name} (groups {g})" if g > 1 else name
+            ops[k] = max(ops.get(k, 0.0), err)
+        flips = sum(int((x != y).sum()) for x, y in zip(rec32.picks,
+                                                        rec64.picks))
+        picks = sum(x.numel() for x in rec32.picks)
+        print(f"  {label}: ReLU and max-pool decisions float32 and float64 "
+              f"took apart: {flips} of {picks}")
+        print(f"    gradient, largest error / largest entry: {show(free)}")
+        print(f"    the same, float64 taking float32's decisions: "
+              f"{show(leaf)}")
+        print(f"    each op against float64 on its own inputs: "
+              f"{show(dict(sorted(ops.items())))}")
+        out[how] = {"flips": flips, "leaf_rel_err_free": free,
+                    "leaf_rel_err": leaf, "op_rel_err": ops}
+        if strict:
+            grouped = {k for k in ops if k.startswith(
+                "convolution_backward (groups")}
+            if how == "vmap":
+                grouped |= {k for k in leaf if k.startswith("conv")
+                            and k.endswith(".w")}
+            bad = {k: v for k, v in {**ops, **leaf}.items() if not v <= (
+                GROUPED_BWD_RTOL if k in grouped else OP_RTOL)}
+            check(not bad, f"{label}: beyond {OP_RTOL} ({GROUPED_BWD_RTOL} "
+                  f"for a grouped convolution's backward) of float64 on the "
+                  f"same inputs and decisions: {bad}")
+        del g32, g64, same, rec32, rec64
+
+    vgrad = torch.func.vmap(grad, in_dims=(None, 0, 0))
+    vgrad(params, batch, dkeys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vgrad(params, batch, dkeys)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total
+    print(f"  the vmapped step's device kernels ({len(kernels)} by name; "
+          f"us, the longest first):")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"    {us:9.1f}  {name[:150]}")
+    out["kernels_us"] = kernels
+    return out
+
+
+# the engines against each other on the card at full width, one round from
+# a common start: the same winner, scores and test losses (near 2) within
+# this relative tolerance.  Both compute in float32 (TF32 off) but sum in
+# other orders (a vmapped convolution is a grouped one, which cuDNN runs by
+# other algorithms), and either engine's run differs from itself between
+# processes.  Twenty SGD steps turn the first ReLU or max-pool decision
+# that falls the other way into a difference that grows: one client's
+# local SGD in float32 against float64 on the same inputs, either engine,
+# read 5e-2 of a bias and 5e-5 of the loss at the end, and one round's
+# scores of the two engines read 1.8e-4 to 1.63e-3 apart, the same with
+# the grouped weight gradient of phase 3b replaced by an exact one (an
+# H100 80GB HBM3; PERF.md, section 6).  A client's scores differ by ~5e-2
+# from one another.  Phase 3b holds each op to float64; at narrow width,
+# where flips are rare, phase 6 and the tests hold the port to 1e-4.
+ENGINE_RTOL = 1e-2
+
+
+def lockstep(torch, counters, cfg, rounds, want_launches, title):
+    """``cfg`` on both engines, round by round from a common start: each
+    round, the sequential server starts from the global model the batched
+    one started from (the key schedules are the same), so the comparison
+    reads one round of each engine, not rounds of drift.  Per round: the
+    same winner, scores and test losses within ENGINE_RTOL, and
+    ``want_launches[engine]`` bwo_evolve launches.  Returns each engine's
+    round times and the launches counted in each of its rounds."""
+    from repro_torch.core import build_experiment
+    print(f"== {title}")
+    exps = {e: build_experiment(dataclasses.replace(cfg, engine=e))
+            for e in ("batched", "sequential")}
+    for e, exp in exps.items():
+        check(exp.server.engine == e, f"engine={e} built {exp.server.engine}")
+    times = {e: [] for e in exps}
+    counted = {e: [] for e in exps}
+    for r in range(rounds):
+        start = exps["batched"].server.global_params
+        got = {}
+        for e, exp in exps.items():
+            exp.server.global_params = start
+            reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = exp.server.run_round()
+            torch.cuda.synchronize()
+            times[e].append(time.perf_counter() - t0)
+            n = read_counts(counters)["bwo_evolve"]
+            counted[e].append(n)
+            check(n == want_launches[e], f"{e}: bwo_evolve launched {n} "
+                  f"times in round {r}, expected {want_launches[e]}")
+            got[e] = info, exp.server.evaluate(exp.eval_data)[0]
+        (bi, bl), (si, sl) = got["batched"], got["sequential"]
+        diff = max(abs(s - t) / abs(t) for s, t in zip(bi["scores"],
+                                                       si["scores"]))
+        loss = abs(bl - sl) / abs(sl)
+        print(f"  round {r}: round_time_s batched {times['batched'][-1]:.3f} "
+              f"sequential {times['sequential'][-1]:.3f}; winner "
+              f"{bi['best_client']} vs {si['best_client']}, max relative "
+              f"score diff {diff:.2e}, test loss {bl:.6f} vs {sl:.6f} "
+              f"(tol {ENGINE_RTOL})")
+        check(all(math.isfinite(s) for s in bi["scores"] + si["scores"]),
+              f"non-finite scores in round {r}")
+        check(bi["best_client"] == si["best_client"],
+              f"{title}: different winners in round {r}")
+        check(diff <= ENGINE_RTOL and loss <= ENGINE_RTOL,
+              f"{title}: scores or test loss differ beyond {ENGINE_RTOL}")
+    check(exps["batched"].meter.summary() == exps["sequential"].meter.summary(),
+          "the engines' CommMeter ledgers differ")
+    return times, counted
+
+
+def fl_run(torch, counters, cfg, want_engine, want_launches, title):
+    """One run through the user's entry points with every launch counter
+    set to 0 just before and read just after; checks the engine, the
+    bwo_evolve launches, finite results on the card and the uplink.
+    Returns the result, the launches and the peak device memory."""
+    from repro_torch import tree
+    from repro_torch.core import build_experiment
+    print(f"== {title}")
+    exp = build_experiment(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    result = exp.run(verbose=True)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    rounds = len(result.logs)
+    for log in result.logs:
+        print(f"  round {log.round}: round_time_s {log.round_time_s:.3f}  "
+              f"test_acc {log.test_acc:.4f}  test_loss {log.test_loss:.4f}  "
+              f"winner {log.info['best_client']}")
+    engine = result.summary()["engine"]
+    print(f"  engine {engine} (vectorize "
+          f"{getattr(exp.server._engine, 'vectorize', '-')}); {rounds} rounds "
+          f"in {wall:.2f} s; launches {launches}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    check(engine == want_engine, f"ran engine {engine}, expected {want_engine}")
+    check(rounds == cfg.max_rounds, f"ran {rounds} rounds")
+    want = want_launches * rounds
+    check(launches["bwo_evolve"] == want,
+          f"bwo_evolve launched {launches['bwo_evolve']} times, expected {want}")
+    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
+          "the FL path ran attention or the scan")
+    for log in result.logs:
+        check(all(math.isfinite(s) for s in log.info["scores"]),
+              f"non-finite score in round {log.round}: {log.info['scores']}")
+        check(math.isfinite(log.test_loss), "non-finite test loss")
+    model_bytes = exp.meter.model_bytes
+    check(model_bytes == 9_861_288, f"model_bytes {model_bytes}")
+    uplink = exp.meter.total_uplink
+    check(uplink == rounds * (cfg.n_clients * 4 + model_bytes),
+          f"uplink {uplink} != {rounds} x (40 + {model_bytes})")
+    check(all(t.is_cuda and bool(torch.isfinite(t).all())
+              for t in tree.leaves(result.server.global_params)),
+          "global params not finite on the card")
+    print(f"  uplink {uplink} bytes = {rounds} x "
+          f"{cfg.n_clients * 4 + model_bytes}")
+    return result, launches["bwo_evolve"], peak
+
+
+def fl_phases(torch, counters):
+    """Phases 4-6.  Returns bwo_evolve's launches on the main path, its
+    launches counted in each round of phase 4b by engine, and each
+    engine's round times there."""
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.data.synthetic import cnn_task
+    # tau above any accuracy, so the run takes all three rounds: on this
+    # data the paper's tau = 0.70 stops it after round 2
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", max_rounds=3, tau=1.01)
+    per_round = {"batched": cfg.mh_generations,
+                 "sequential": cfg.n_clients * cfg.mh_generations}
+    result, launches, peak = fl_run(
+        torch, counters, cfg, "batched", per_round["batched"],
+        "4. main path: FedBWO, paper CNN at full width, bwo_kernel "
+        "(engine auto: batched, vmap)")
+    times, per_round_counted = lockstep(
+        torch, counters, cfg, cfg.max_rounds, per_round,
+        "4b. the main path on both engines, round by round from a common "
+        "start")
+    print(f"  round_time_s batched {times['batched']} sequential "
+          f"{times['sequential']}; peak device memory of the batched run "
+          f"(phase 4) {peak / 2**30:.2f} GiB")
+
+    none = {"batched": 0, "sequential": 0}
+    lockstep(torch, counters, dataclasses.replace(cfg, bwo_kernel=False), 1,
+             none, "5. one round of the default (composed) FedBWO on each "
+             "engine")
+
+    print("== 6. kernel route on the card (batched) against the port's CPU "
+          "route (sequential)")
+    narrow = CNNConfig(conv1_filters=4, conv2_filters=8, dense_hidden=16)
+    small = dict(n_clients=3, n_train=90, n_test=30, mh_pop=3,
+                 mh_generations=2, local_epochs=1, max_rounds=2,
+                 bwo_kernel=True)
+    on_card = build_experiment(FLConfig(device="cuda", **small),
+                               task=cnn_task(narrow)).run()
+    on_cpu = build_experiment(FLConfig(device="cpu", **small),
+                              task=cnn_task(narrow)).run()
+    check(on_card.summary()["engine"] == "batched"
+          and on_cpu.summary()["engine"] == "sequential",
+          "auto chose other engines than batched on the card and "
+          "sequential for the CPU's conv task")
+    for a, b in zip(on_card.logs, on_cpu.logs):
+        diff = max(abs(x - y) for x, y in zip(a.info["scores"],
+                                               b.info["scores"]))
+        print(f"  round {a.round}: winner {a.info['best_client']} vs "
+              f"{b.info['best_client']}, max score diff {diff:.2e}, "
+              f"test loss {a.test_loss:.6f} vs {b.test_loss:.6f}")
+        check(a.info["best_client"] == b.info["best_client"],
+              "card and CPU routes chose different winners")
+        check(diff <= 1e-4 and abs(a.test_loss - b.test_loss) <= 1e-4,
+              "card and CPU routes disagree beyond 1e-4")
+
+    ragged = dataclasses.replace(cfg, partition="dirichlet")
+    check(build_experiment(ragged).server._engine.padded,
+          "the Dirichlet split was not padded and masked")
+    lockstep(torch, counters, ragged, 1, per_round,
+             "6b. a Dirichlet (ragged: padded and masked) split at full "
+             "width, one round on each engine")
+
+    fl_run(torch, counters, FLConfig(strategy="fedgwo", device="cuda",
+                                     max_rounds=1), "batched", 0,
+           "6c. one FedGWO round, full width, batched engine")
+    torch.cuda.empty_cache()
+    return launches, per_round_counted, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch import random, tree
-    from repro_torch.configs.paper_cnn import CNNConfig
-    from repro_torch.core import FLConfig, build_experiment
-    from repro_torch.data.synthetic import cnn_task
     from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
-    from repro_torch.kernels.bwo_evolve import ops as bwo_ops, ref as bwo_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
     counters = (bwo_kernel, fa_kernel, ssm_kernel)
@@ -813,160 +1383,11 @@ def main() -> int:
         print(f"built {k}: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"build seconds {time.perf_counter() - t0:.2f}")
 
-    # ------------------------------------- 3. kernels vs plain versions --
-    print("== 3. bwo_evolve against its plain version on the card")
-    dev = torch.device("cuda")
-    P, D = 6, 2_465_322              # the main path: pop 6, the paper CNN
-    max_err = 0.0
-    for (p, d) in [(P, D), (16, 4097), (4, 100)]:
-        for dtype, tol in [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]:
-            key = random.PRNGKey(p * 7 + d, dev)
-            pop = random.normal(key, (p, d)).to(dtype)
-            fit = random.uniform(random.split(key)[1], (p,))
-            got = bwo_ops.bwo_evolve(pop, fit, key)
-            want = bwo_ops.bwo_evolve_reference(pop, fit, key)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            print(f"  P={p} D={d} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                  f"(tol {tol}) {'ok' if ok else 'FAILED'}")
-            check(ok and math.isfinite(err), f"bwo_evolve disagrees at "
-                  f"P={p} D={d} {dtype}: max_abs_err {err}")
-            max_err = max(max_err, err)
-
-    key = random.PRNGKey(2024, dev)
-    pop = random.normal(key, (P, D))
-    fit = random.uniform(random.split(key)[1], (P,))
-    pop32, p1, p2, b1, b2, gate = bwo_ops.sample(pop, fit, key, pm=0.4,
-                                                 procreate_frac=0.6)
-    kw = dict(pm_gene=0.1, mut_scale=0.05)
-    kernel_ms = time_ms(torch, lambda: bwo_kernel.bwo_evolve_cuda(
-        pop32, p1, p2, b1, b2, gate, **kw))
-    plain_ms = time_ms(torch, lambda: bwo_ref.bwo_evolve_ref(
-        pop32, p1, p2, b1, b2, gate, **kw))
-    parents = torch.unique(torch.cat([p1, p2])).numel()
-    Dp = b1.shape[1]
-    nbytes = (parents * D * 4 + 2 * P * Dp * 4 + P * D * 4
-              + 2 * P * 4 + P * 4)
-    flops = FLOPS_PER_GENE * P * D
-    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, flops / f32_rate * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"  P={P} D={D} Dp={Dp}: {parents} distinct parent rows, "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP")
-    print(f"  kernel {kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"bound {bound_ms:.4f} ms ({bound_by})  "
-          f"kernel at {bound_ms / kernel_ms:.1%} of bound")
-
-    # one client's share of a main-path round, at full width: local SGD
-    # (2 epochs of 10 batches of 10), the population's seeding, and one
-    # kernel-route BWO generation split into the two threefry bit draws,
-    # all of its sampling, the kernel, and the children's fitness
-    from repro_torch.convert import ravel_params
-    from repro_torch.core.client import ClientHP, make_fitness_fn, make_local_sgd
-    from repro_torch.data import loader, synthetic
-    from repro_torch.metaheuristics.bwo import bwo
-    task = cnn_task()
-    train, _ = synthetic.make_cifar_like(random.PRNGKey(42, dev), 100, 10)
-    data = loader.batch_dataset(train, 10)
-    params = task.init_params(random.PRNGKey(7, dev))
-    sgd = make_local_sgd(task, ClientHP(local_epochs=2))
-    sgd_ms = time_ms(torch, lambda: sgd(params, data, key), reps=3, warmup=1)
-    flat, unravel = ravel_params(params)
-    fit_fn = make_fitness_fn(task, data, unravel, 2)
-    mh = bwo(use_kernel=True)
-    with torch.no_grad():
-        init_ms = time_ms(torch, lambda: mh.init(key, flat, P, fit_fn), reps=5)
-        state = mh.init(key, flat, P, fit_fn)
-        gen_ms = time_ms(torch, lambda: mh.step(key, state, fit_fn), reps=5)
-        bits_ms = time_ms(torch, lambda: random.bits(key, (P, Dp)), reps=5)
-        sample_ms = time_ms(torch, lambda: bwo_ops.sample(
-            state["pop"], state["fit"], key, pm=0.4, procreate_frac=0.6),
-            reps=5)
-        fitness_ms = time_ms(torch, lambda: fit_fn(state["pop"]), reps=5)
-        split_ms = time_ms(torch, lambda: random.split(key, 5))
-    client_ms = sgd_ms + init_ms + 3 * gen_ms
-    print(f"  one client: local SGD {sgd_ms:.2f} ms, population seeding "
-          f"{init_ms:.2f} ms, 3 generations {3 * gen_ms:.2f} ms; "
-          f"x 10 clients = {10 * client_ms / 1e3:.3f} s")
-    print(f"  one generation {gen_ms:.2f} ms: two bit draws "
-          f"{2 * bits_ms:.2f} ms ({2 * bits_ms / gen_ms:.1%}), all sampling "
-          f"{sample_ms:.2f} ms ({sample_ms / gen_ms:.1%}), kernel "
-          f"{kernel_ms:.4f} ms ({kernel_ms / gen_ms:.2%}), fitness "
-          f"{fitness_ms:.2f} ms ({fitness_ms / gen_ms:.1%})")
-    print(f"  one key split (a threefry of ~175 small launches) "
-          f"{split_ms:.3f} ms")
-
-    # ------------------------------------------------- 4. the main path --
-    print("== 4. main path: FedBWO, paper CNN at full width, bwo_kernel")
-    # tau above any accuracy, so the run takes all three rounds: on this
-    # data the paper's tau = 0.70 stops it after round 2
-    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
-                   device="cuda", max_rounds=3, tau=1.01)
-    exp = build_experiment(cfg)
-    reset_counts(counters)
-    t0 = time.perf_counter()
-    result = exp.run(verbose=True)
-    wall = time.perf_counter() - t0
-    launches = read_counts(counters)
-    rounds = len(result.logs)
-    for log in result.logs:
-        print(f"  round {log.round}: round_time_s {log.round_time_s:.3f}  "
-              f"test_acc {log.test_acc:.4f}  test_loss {log.test_loss:.4f}  "
-              f"winner {log.info['best_client']}")
-    print(f"  {rounds} rounds in {wall:.2f} s; launches {launches}")
-    want_launches = cfg.n_clients * cfg.mh_generations * rounds
-    check(rounds == cfg.max_rounds, f"the main path ran {rounds} rounds")
-    check(launches["bwo_evolve"] == want_launches,
-          f"bwo_evolve launched {launches['bwo_evolve']} times, "
-          f"expected {want_launches}")
-    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
-          "the FL path ran attention or the scan")
-    for log in result.logs:
-        check(all(math.isfinite(s) for s in log.info["scores"]),
-              f"non-finite score in round {log.round}: {log.info['scores']}")
-        check(math.isfinite(log.test_loss), "non-finite test loss")
-    model_bytes = exp.meter.model_bytes
-    check(model_bytes == 9_861_288, f"model_bytes {model_bytes}")
-    uplink = exp.meter.total_uplink
-    check(uplink == rounds * (cfg.n_clients * 4 + model_bytes),
-          f"uplink {uplink} != {rounds} x (40 + {model_bytes})")
-    check(all(t.is_cuda and bool(torch.isfinite(t).all())
-              for t in tree.leaves(result.server.global_params)),
-          "global params not finite on the card")
-    print(f"  uplink {uplink} bytes = {rounds} x {cfg.n_clients * 4 + model_bytes}")
-
-    # ---------------------------------------- 5. composed FedBWO round --
-    print("== 5. one round of the default (composed) FedBWO on the card")
-    before = bwo_kernel.launches
-    res = build_experiment(FLConfig(device="cuda", max_rounds=1)).run()
-    log = res.logs[0]
-    print(f"  round_time_s {log.round_time_s:.3f}  test_acc "
-          f"{log.test_acc:.4f}  winner {log.info['best_client']}")
-    check(bwo_kernel.launches == before, "the composed route launched the kernel")
-    check(all(math.isfinite(s) for s in log.info["scores"]),
-          "non-finite composed-route score")
-
-    # ------------------------- 6. card against the CPU route, small input --
-    print("== 6. kernel route on the card against the port's CPU route")
-    narrow = CNNConfig(conv1_filters=4, conv2_filters=8, dense_hidden=16)
-    small = dict(n_clients=3, n_train=90, n_test=30, mh_pop=3,
-                 mh_generations=2, local_epochs=1, max_rounds=2,
-                 bwo_kernel=True)
-    on_card = build_experiment(FLConfig(device="cuda", **small),
-                               task=cnn_task(narrow)).run()
-    on_cpu = build_experiment(FLConfig(device="cpu", **small),
-                              task=cnn_task(narrow)).run()
-    for a, b in zip(on_card.logs, on_cpu.logs):
-        diff = max(abs(x - y) for x, y in zip(a.info["scores"],
-                                               b.info["scores"]))
-        print(f"  round {a.round}: winner {a.info['best_client']} vs "
-              f"{b.info['best_client']}, max score diff {diff:.2e}, "
-              f"test loss {a.test_loss:.6f} vs {b.test_loss:.6f}")
-        check(a.info["best_client"] == b.info["best_client"],
-              "card and CPU routes chose different winners")
-        check(diff <= 1e-4 and abs(a.test_loss - b.test_loss) <= 1e-4,
-              "card and CPU routes disagree beyond 1e-4")
+    # ------------------------------------------- 3.-6. the FL path --
+    bwo = bwo_phase(torch, mem_rate, f32_rate)
+    grad_phase(torch)
+    bwo["launches"], bwo["launches_per_round"], bwo["round_time_s"] = (
+        fl_phases(torch, counters))
 
     fa, fa_times = flash_phase(torch, mem_rate, bf16_rate)
     serve_launches, olmo_routes = serve_phase(torch, counters,
@@ -982,10 +1403,7 @@ def main() -> int:
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",
-        "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43",
-        "launches": launches["bwo_evolve"], "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43", **bwo}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_hopper.cu",
         "sources": {"tensor_core": "src/repro_torch/csrc/flash_attention_hopper.cu",

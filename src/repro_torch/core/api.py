@@ -58,10 +58,11 @@ class FLConfig:
     lr: float = 0.0025              # paper §IV-A
     mh_pop: int = 6
     mh_generations: int = 3
-    engine: str = "auto"            # knobs.ENGINES; auto = sequential here
+    # knobs.ENGINES; auto = batched, except conv tasks on the CPU
+    engine: str = "auto"
     vectorize: str = "auto"         # knobs.VECTORIZE_MODES (batched engine)
-    rounds_per_dispatch: Any = 1    # resolved as on the sequential engine
-    pipeline_blocks: Any = "auto"   # resolved as on the sequential engine
+    rounds_per_dispatch: Any = 1    # "auto" = 1 until fused rounds land
+    pipeline_blocks: Any = "auto"   # "auto" = off until fused rounds land
     # evaluate the global model every k-th round (the last round always)
     eval_every: int = 1
     max_rounds: int = 8
@@ -97,7 +98,8 @@ class FLConfig:
     def client_hp(self) -> ClientHP:
         return ClientHP(local_epochs=self.local_epochs, lr=self.lr,
                         mh_pop=self.mh_pop,
-                        mh_generations=self.mh_generations)
+                        mh_generations=self.mh_generations,
+                        vectorize=self.vectorize)
 
     def stop_conditions(self) -> StopConditions:
         return StopConditions(max_rounds=self.max_rounds,

@@ -1,11 +1,13 @@
 """FL client: local SGD epochs + (FedX) meta-heuristic weight refinement.
 
-``make_client_update`` returns ``client_update(params, data, key) ->
-(score, params)``: SGD over the client's batches for a few epochs, then G
+``make_update`` returns ``update(params, data, mask, key) -> (score,
+params)``: SGD over the client's batches for a few epochs, then G
 generations of the meta-heuristic on the flattened weights with fitness =
 loss on the client's own data (paper Algorithm 3, UpdateClient).  The key
 schedule is the reference's, split for split, so a client draws the same
-dropout masks and the same BWO randomness.
+dropout masks and the same BWO randomness.  The same update serves both
+round engines: called once per client (sequential), or once for all
+clients under ``torch.func.vmap`` (batched, ``repro_torch.core.engine``).
 """
 from __future__ import annotations
 
@@ -28,9 +30,8 @@ class Task(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ClientHP:
-    """The reference's ``ClientHP`` less its XLA-only knobs (``unroll``,
-    ``vectorize``) and the unused ``momentum``: the port's loops are
-    Python loops, and it has no batched engine yet."""
+    """The reference's ``ClientHP`` less ``unroll`` (an XLA-only knob: the
+    port's loops are Python loops) and the unused ``momentum``."""
     local_epochs: int = 5
     lr: float = 0.0025                  # paper §IV-A
     mh_pop: int = 8
@@ -43,64 +44,90 @@ class ClientHP:
     # FedProx proximal term (Li et al. 2020): local objective +=
     # (mu/2) * ||w - w_global||^2.  0 disables.
     prox_mu: float = 0.0
+    # How the batched round engine (repro_torch.core.engine) traverses
+    # the client axis: "vmap" | "scan" | "unroll" | "auto" (scan on the
+    # CPU, vmap on the card); see engine.resolve_vectorize.
+    vectorize: str = "auto"
 
 
-def make_local_sgd(task: Task, hp: ClientHP, masked: bool = False):
-    """data: dict of tensors with leading (n_batches, batch, ...) dims.
+def make_local_sgd(task: Task, hp: ClientHP):
+    """``local_sgd(params, data, key, mask=None)``; data: dict of tensors
+    with leading (n_batches, batch, ...) dims.
 
-    ``masked=True`` (pad+mask batches of the batched engine) is not
-    ported yet: ROADMAP.md, queue 1, item 8.
+    Each step is functional (``torch.func.grad`` of the loss in the
+    parameters), so the same code runs per client and under
+    ``torch.func.vmap`` over the client axis.  ``mask``, an
+    ``(n_batches,)`` bool row, marks the valid (non-padded) batches of a
+    padded dataset: the update of a padded batch is discarded with
+    ``torch.where``, and the key carry only advances past valid batches,
+    so the per-batch dropout keys match the same client's unpadded run.
     """
-    if masked:
-        raise NotImplementedError(
-            "masked local SGD belongs to the batched engine, not yet ported "
-            "(ROADMAP.md, queue 1, item 8)")
 
-    def one_step(params, batch, dkey, anchor=None):
-        ps = tree.map(lambda p: p.detach().requires_grad_(True), params)
-        loss = task.loss_fn(ps, {**batch, "rng": dkey})[0]
+    def objective(params, batch, dkey, anchor):
+        loss = task.loss_fn(params, {**batch, "rng": dkey})[0]
         if hp.prox_mu > 0 and anchor is not None:   # FedProx
             sq = sum(torch.sum(torch.square(a.float() - b.float()))
-                     for a, b in zip(tree.leaves(ps), tree.leaves(anchor)))
+                     for a, b in zip(tree.leaves(params),
+                                     tree.leaves(anchor)))
             loss = loss + 0.5 * hp.prox_mu * sq
-        grads = torch.autograd.grad(loss, tree.leaves(ps))
-        return tree.unflatten(
-            tree.structure(params),
-            [p.detach() - hp.lr * g.to(p.dtype)
-             for p, g in zip(tree.leaves(ps), grads)])
+        return loss
 
-    def sgd_epoch(params, data, key, anchor):
+    grad_fn = torch.func.grad(objective)
+
+    def one_step(params, batch, dkey, anchor):
+        grads = grad_fn(params, batch, dkey, anchor)
+        return tree.map(lambda p, g: p - hp.lr * g.to(p.dtype),
+                        params, grads)
+
+    def sgd_epoch(params, data, key, anchor, mask):
         n_batches = tree.leaves(data)[0].shape[0]
         for i in range(n_batches):
-            key, dkey = random.split(key)
-            batch = tree.map(lambda a: a[i], data)
-            params = one_step(params, batch, dkey, anchor)
+            key2, dkey = random.split(key)
+            new = one_step(params, tree.map(lambda a: a[i], data), dkey,
+                           anchor)
+            if mask is not None:
+                valid = mask[i]
+                new = tree.map(lambda n, p: torch.where(valid, n, p),
+                               new, params)
+                key2 = torch.where(valid, key2, key)
+            params, key = new, key2
         return params
 
-    def local_sgd(params, data, key):
+    def local_sgd(params, data, key, mask=None):
         anchor = params if hp.prox_mu > 0 else None   # w_global (FedProx)
         for _ in range(hp.local_epochs):
             key, ekey = random.split(key)
-            params = sgd_epoch(params, data, ekey, anchor)
+            params = sgd_epoch(params, data, ekey, anchor, mask)
         return params
 
     return local_sgd
 
 
-def _fitness_slice(data, n_batches: int):
+def _fitness_slice(data, n_batches: int, n_valid=None):
     """The first ``n_batches`` batches of a client dataset, as a list.  A
     client with fewer batches repeats its last one, as the reference's
-    clamped indexing does.  (The gather over padded datasets belongs to
-    the batched engine, not yet ported.)"""
-    n = tree.leaves(data)[0].shape[0]
-    return [tree.map(lambda a: a[min(i, n - 1)], data)
-            for i in range(n_batches)]
+    clamped indexing does.  For a padded dataset (``n_valid``, the count
+    of valid leading batches, a tensor) the gather is at
+    ``min(i, n_valid - 1)``, so a short client scores the same repeated
+    batch as on the sequential engine, never a padded zero batch."""
+    if n_valid is None:
+        n = tree.leaves(data)[0].shape[0]
+        return [tree.map(lambda a: a[min(i, n - 1)], data)
+                for i in range(n_batches)]
+    idx = torch.minimum(
+        torch.arange(n_batches, device=n_valid.device),
+        torch.clamp_min(n_valid - 1, 0))
+    sub = tree.map(lambda a: a[idx], data)
+    return [tree.map(lambda a: a[i], sub) for i in range(n_batches)]
 
 
-def make_fitness_fn(task: Task, data, unravel, n_batches: int):
+def make_fitness_fn(task: Task, data, unravel, n_batches: int,
+                    n_valid=None):
     """Batched population fitness: mean loss over the first n_batches,
-    one member at a time (as the reference maps over the population)."""
-    batches = _fitness_slice(data, n_batches)
+    one member at a time (as the reference maps over the population).
+    ``n_valid`` marks the valid-batch count of a padded dataset (see
+    :func:`_fitness_slice`)."""
+    batches = _fitness_slice(data, n_batches, n_valid)
 
     def one(flat):
         params = unravel(flat)
@@ -130,19 +157,28 @@ def make_subspace_map(params, scale: float):
     return len(leaves), apply_z
 
 
-def make_client_update(task: Task, hp: ClientHP,
-                       mh: Optional[Metaheuristic] = None,
-                       masked: bool = False):
-    """Returns ``client_update(params, data, key) -> (score, params)``.
-    With ``mh`` (FedX): SGD then meta-heuristic refinement; without
-    (FedAvg): plain SGD, score = post-training loss.  ``masked=True``
-    raises: it belongs to the batched engine (ROADMAP.md, queue 1, item 8).
-    """
-    local_sgd = make_local_sgd(task, hp, masked=masked)
+def make_update(task: Task, hp: ClientHP,
+                mh: Optional[Metaheuristic] = None):
+    """Returns ``update(params, data, mask, key) -> (score, params)``, the
+    one client update of both round engines.  With ``mh`` (FedX): SGD
+    then meta-heuristic refinement; without (FedAvg): plain SGD, score =
+    post-training loss.
 
-    def client_update(global_params, data, key):
+    ``mask`` is None for a client's own batches, or the ``(n_batches,)``
+    bool validity row of one client of a pad+mask stack
+    (:func:`repro_torch.core.engine.stack_clients` with ``pad=True``):
+    padded batches contribute no SGD step and no fitness term, so scores
+    and weights match the same client's unpadded run.
+
+    Nothing here reads a tensor on the host, so the update runs as it is
+    under ``torch.func.vmap`` over the client axis (the batched engine).
+    """
+    local_sgd = make_local_sgd(task, hp)
+
+    def update(global_params, data, mask, key):
         r_sgd, r_mh = random.split(key)
-        params = local_sgd(global_params, data, r_sgd)
+        params = local_sgd(global_params, data, r_sgd, mask)
+        n_valid = None if mask is None else mask.to(torch.int64).sum()
 
         with torch.no_grad():
             if hp.subspace and mh is not None:
@@ -154,7 +190,7 @@ def make_client_update(task: Task, hp: ClientHP,
             else:
                 x0, to_params = ravel_params(params)
             fit_fn = make_fitness_fn(task, data, to_params,
-                                     hp.fitness_batches)
+                                     hp.fitness_batches, n_valid)
             if mh is None:
                 return fit_fn(x0[None])[0], params
             state = mh.init(r_mh, x0, hp.mh_pop, fit_fn)
@@ -165,4 +201,16 @@ def make_client_update(task: Task, hp: ClientHP,
             best, best_fit = best_member(state)
             return best_fit, to_params(best)
 
-    return client_update
+    return update
+
+
+def make_client_update(task: Task, hp: ClientHP,
+                       mh: Optional[Metaheuristic] = None,
+                       masked: bool = False):
+    """:func:`make_update` under the reference's signatures:
+    ``client_update(params, data, key)``, or with ``masked=True``
+    ``client_update(params, data, mask, key)``."""
+    update = make_update(task, hp, mh)
+    if masked:
+        return update
+    return lambda params, data, key: update(params, data, None, key)

@@ -4,9 +4,9 @@
 2. accuracy above threshold ``tau``,
 3. round limit reached.
 
-The port drives one round at a time (the reference's single-round branch);
-fused and pipelined blocks come with the batched engine (ROADMAP.md,
-queue 1, item 9).
+The port drives one round at a time on either engine (the reference's
+single-round branch); fused and pipelined blocks are still to be ported
+(ROADMAP.md, queue 1, item 9).
 """
 from __future__ import annotations
 

@@ -3,16 +3,27 @@
 ``FedAvg``  — clients upload weights; server averages (Alg. 2).
 ``FedX``    — clients upload a 4-byte score; server fetches the best
               client's weights and adopts them as the global model
-              (Alg. 3: ServerRun + GetBestModel).  X is the client-side
-              meta-heuristic (BWO in this port so far).
+              (Alg. 3: ServerRun + GetBestModel).  X ∈ {BWO, PSO, GWO,
+              SCA, AVO} only changes the client-side meta-heuristic.
 
-The port runs the **sequential** round engine: one client after another,
-on the device of the server's key, with one device->host sync per round
-(the scores).  The batched engine, fused rounds and pipelined blocks are
-still to be ported (ROADMAP.md, queue 1, items 8-9): ``engine="auto"``
-resolves to ``"sequential"``, ``"batched"`` raises, and
-``rounds_per_dispatch`` / ``pipeline_blocks`` resolve as the reference
-resolves them on its sequential engine.
+Two round engines run the same protocol, on the device of the server's
+key, with identical ``CommMeter`` accounting and one device->host sync per
+round:
+
+``batched``    — every client's update in one program over a leading
+                 client axis (:class:`repro_torch.core.engine.
+                 BatchedRoundEngine`): under ``torch.func.vmap`` on the
+                 card, so each op, the BWO kernel included, is issued
+                 once for all clients.  Ragged (Dirichlet) client
+                 datasets batch too, by pad+mask stacking.
+``sequential`` — one client after another; the fallback for genuinely
+                 unstackable client datasets, the CPU's engine for conv
+                 tasks, and the baseline of the engine-parity tests.
+
+Fused rounds and pipelined blocks are still to be ported (ROADMAP.md,
+queue 1, item 9): ``rounds_per_dispatch="auto"`` resolves to 1 on both
+engines (the reference's batched engine resolves it to 5), and a forced
+R > 1 raises on the batched engine.
 """
 from __future__ import annotations
 
@@ -22,8 +33,9 @@ from typing import Any, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import random, tree
-from repro_torch.core.client import ClientHP, Task, make_client_update
+from repro_torch.core.client import ClientHP, Task, make_update
 from repro_torch.core.comm import CommMeter
+from repro_torch.core.engine import BatchedRoundEngine, task_uses_conv
 from repro_torch.core.knobs import (parse_pipeline_blocks,
                                     parse_rounds_per_dispatch,
                                     validate_engine)
@@ -32,7 +44,7 @@ from repro_torch.metaheuristics import REGISTRY, Metaheuristic
 
 @dataclasses.dataclass(frozen=True)
 class Strategy:
-    name: str                         # fedavg | fedbwo
+    name: str                         # fedavg | fedbwo | fedpso | ...
     mh: Optional[Metaheuristic]       # None => FedAvg
     client_ratio: float = 1.0         # C (FedAvg participation ratio)
 
@@ -52,7 +64,19 @@ def get_strategy(name: str, client_ratio: float = 1.0, **mh_kw) -> Strategy:
 
 class Server:
     """Orchestrates FL rounds over in-process simulated clients, on the
-    device of ``rng`` (the server's key) and of the client data."""
+    device of ``rng`` (the server's key) and of the client data.
+
+    ``engine``: "auto" (batched when the client datasets stack — ragged
+    batch counts are padded and masked — except that on the CPU conv
+    tasks stay sequential, as in the reference), "batched" (forced; an
+    unstackable dataset raises) or "sequential".
+
+    ``rounds_per_dispatch`` / ``pipeline_blocks``: "auto" resolves to one
+    round per dispatch and no pipeline on both engines until fused rounds
+    are ported (ROADMAP.md, queue 1, item 9).  On the sequential engine a
+    forced value is kept and runs round by round, as in the reference; on
+    the batched engine a forced R > 1 raises.
+    """
 
     def __init__(self, task: Task, strategy: Strategy, hp: ClientHP,
                  client_data: Sequence[Any], rng: torch.Tensor,
@@ -60,10 +84,6 @@ class Server:
                  rounds_per_dispatch: Union[int, str] = 1,
                  pipeline_blocks: Union[bool, str] = "auto"):
         validate_engine(engine)
-        if engine == "batched":
-            raise NotImplementedError(
-                "engine='batched' is not ported yet (ROADMAP.md, queue 1, "
-                "item 8); the port runs engine='sequential'")
         rpd = parse_rounds_per_dispatch(rounds_per_dispatch)
         pipe = parse_pipeline_blocks(pipeline_blocks)
         self.task = task
@@ -89,26 +109,79 @@ class Server:
                               for l in tree.leaves(self.global_params))
         self.meter = CommMeter(model_bytes=model_bytes,
                                n_clients=self.n_clients)
-        # the sequential engine: no batched round program to fuse or to
-        # overlap, so "auto" resolves to one round per dispatch and no
-        # pipeline; a forced value is kept, and runs round by round
-        self.engine = "sequential"
+        self._engine: Optional[BatchedRoundEngine] = None
+        if engine != "sequential" and self.n_clients > 0:
+            # the reference's policy: on the CPU, conv tasks run faster
+            # client by client than as grouped convolutions over the
+            # client axis, so engine="auto" keeps them sequential there
+            want = engine == "batched" or not (
+                self.device.type == "cpu"
+                and task_uses_conv(
+                    task, self.global_params,
+                    tree.map(lambda a: a[0], self.client_data[0])))
+            if want:
+                try:
+                    self._engine = BatchedRoundEngine(
+                        task, strategy, hp, self.client_data, self.device)
+                except ValueError:
+                    if engine == "batched":
+                        raise
+        self.engine = "batched" if self._engine is not None else "sequential"
+        if self._engine is not None and rpd is not None and rpd > 1:
+            raise NotImplementedError(
+                f"rounds_per_dispatch={rpd} fuses rounds on the batched "
+                f"engine, which is not ported yet (ROADMAP.md, queue 1, "
+                f"item 9); pass 1 or 'auto'")
+        # no fused round program yet: "auto" is one round per dispatch and
+        # no pipeline on either engine; the sequential engine keeps a
+        # forced value and runs it round by round
         self.rounds_per_dispatch = 1 if rpd is None else rpd
         self.pipeline_blocks = bool(pipe) if pipe is not None else False
         self.rounds_completed = 0
-        self._update = make_client_update(task, hp, strategy.mh)
+        self._update = None
+        if self._engine is None:
+            self._update = make_update(task, hp, strategy.mh)
 
     # ------------------------------------------------------------ round --
     def run_round(self) -> dict:
         keys = random.split(self.rng, self.n_clients + 2)
         self.rng, sel_key, ckeys = keys[0], keys[1], keys[2:]
         self.rounds_completed += 1
+        if self._engine is not None:
+            return self._run_round_batched(sel_key, ckeys)
+        return self._run_round_sequential(sel_key, ckeys)
+
+    def _run_round_batched(self, sel_key, ckeys) -> dict:
+        if self.strategy.is_fedx:
+            new_params, scores, best = self._engine.fedx_round(
+                self.global_params, ckeys)
+            self.global_params = new_params
+            self.meter.record_fedx_round(fetched_model=True)
+            # the round's single device->host sync
+            scores, best = _fetch(scores, best)
+            best = int(best[0])
+            return {"best_client": best, "score": float(scores[best]),
+                    "scores": [float(s) for s in scores],
+                    "engine": "batched"}
+        new_params, scores, sel = self._engine.fedavg_round(
+            self.global_params, sel_key, ckeys)
+        self.global_params = new_params
+        self.meter.record_fedavg_round(self._engine.n_participants)
+        # the round's single device->host sync; scores align with the
+        # participants list
+        sel, scores = _fetch(sel, scores)
+        return {"participants": [int(k) for k in sel],
+                "scores": [float(s) for s in scores],
+                "engine": "batched"}
+
+    def _run_round_sequential(self, sel_key, ckeys) -> dict:
         if self.strategy.is_fedx:
             # every client trains + refines, uploads only its score
             scores, params_list = [], []
             for k in range(self.n_clients):
                 score, params = self._update(self.global_params,
-                                             self.client_data[k], ckeys[k])
+                                             self.client_data[k], None,
+                                             ckeys[k])
                 scores.append(score)
                 params_list.append(params)
             # one host sync per round, after all clients have run
@@ -126,7 +199,7 @@ class Server:
         scores, new_params = [], []
         for k in sel:
             score, params = self._update(self.global_params,
-                                         self.client_data[k], ckeys[k])
+                                         self.client_data[k], None, ckeys[k])
             scores.append(score)
             new_params.append(params)
         self.global_params = tree.map(
@@ -144,3 +217,16 @@ class Server:
         # one host copy for both scalars
         loss, acc = torch.stack([loss, acc]).cpu().numpy()
         return float(loss), float(acc)
+
+
+def _fetch(*tensors):
+    """Several device tensors in one device->host copy: each flattened
+    into one float64 buffer (exact for float32 and for small ints), split
+    again on the host as numpy arrays."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    host = flat.cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        out.append(host[i:i + t.numel()])
+        i += t.numel()
+    return out

@@ -55,6 +55,7 @@ def _check(name, t, device, dtypes, shape):
 
 
 _WORDS = (torch.int32, torch.uint32)
+MAX_ROWS = 65535             # the grid's y extent: one row of blocks a child
 
 
 def bwo_evolve_cuda(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *,
@@ -62,7 +63,8 @@ def bwo_evolve_cuda(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *,
     """Launch the kernel on the current stream.  pop (P, D) float32; p1_idx,
     p2_idx (P,) int32; bits1, bits2 (P, Dp) 32-bit words (int32 or
     uint32), Dp >= D; row_gate (P, 1) float32; all contiguous on one CUDA
-    device.  Returns the children, (P, D) float32."""
+    device; P <= MAX_ROWS (under vmap, P is clients times population).
+    Returns the children, (P, D) float32."""
     global launches
     if pop.device.type != "cuda":
         raise ValueError(f"bwo_evolve_cuda takes CUDA tensors, got {pop.device}")
@@ -70,6 +72,9 @@ def bwo_evolve_cuda(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *,
         raise ValueError("pop and the bits are (P, D) and (P, Dp)")
     P, D = pop.shape
     Dp = bits1.shape[1]
+    if P > MAX_ROWS:
+        raise ValueError(f"{P} child rows exceed the grid's {MAX_ROWS}: "
+                         f"launch fewer clients times population at once")
     if Dp < D:
         raise ValueError(f"bits are {Dp} wide, fewer than the {D} genes")
     dev = pop.device

@@ -1,6 +1,8 @@
 """One BWO generation step: rank parents, draw the random bits, apply the
 fused update — the kernel for a CUDA tensor, the plain version for a CPU
-tensor.
+tensor.  Under ``torch.func.vmap`` over clients the draws batch as they
+are (one threefry draw for all clients' bit planes) and the update is one
+launch over all clients' rows (``evolve``'s vmap rule).
 
 The draws reproduce the reference's (``repro/kernels/bwo_evolve/ops.py``)
 key for key: the generation key splits five ways, and both bit planes are
@@ -39,10 +41,14 @@ def sample(pop, fit, key, *, pm: float, procreate_frac: float):
     return pop32, p1_idx, p2_idx, bits1, bits2, gate
 
 
-def evolve(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *, pm_gene: float,
-           mut_scale: float) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::bwo_evolve", mutates_args=())
+def evolve(pop: torch.Tensor, p1_idx: torch.Tensor, p2_idx: torch.Tensor,
+           bits1: torch.Tensor, bits2: torch.Tensor, row_gate: torch.Tensor,
+           *, pm_gene: float, mut_scale: float) -> torch.Tensor:
     """The fused update on drawn inputs: the kernel for CUDA tensors, the
-    plain version for CPU tensors (and nothing else)."""
+    plain version for CPU tensors (and nothing else).  An operator of its
+    own, so that ``torch.func.vmap`` batches it by the rule below and not
+    by a loop of launches."""
     if pop.device.type == "cuda":
         return bwo_evolve_cuda(pop, p1_idx, p2_idx, bits1, bits2, row_gate,
                                pm_gene=pm_gene, mut_scale=mut_scale)
@@ -51,6 +57,40 @@ def evolve(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *, pm_gene: float,
                                       row_gate, pm_gene=pm_gene,
                                       mut_scale=mut_scale)
     raise ValueError(f"bwo_evolve runs on cuda or cpu, not {pop.device}")
+
+
+@evolve.register_fake
+def _evolve_fake(pop, p1_idx, p2_idx, bits1, bits2, row_gate, *, pm_gene,
+                 mut_scale):
+    return pop.new_empty(pop.shape)
+
+
+@evolve.register_vmap
+def _evolve_vmap(info, in_dims, pop, p1_idx, p2_idx, bits1, bits2, row_gate,
+                 *, pm_gene, mut_scale):
+    """C clients' generations as one update over C*P rows: each client's
+    rows follow the one before, its parent indices are offset by c*P, and
+    the kernel is launched once (its grid has a row of blocks per child
+    row, so C*P is bounded by the grid; ``bwo_evolve_cuda`` checks it)."""
+    C = info.batch_size
+
+    def batched(t, d):
+        return (t.unsqueeze(0).expand(C, *t.shape) if d is None
+                else t.movedim(d, 0))
+
+    pop, p1_idx, p2_idx, bits1, bits2, row_gate = (
+        batched(t, d) for t, d in zip(
+            (pop, p1_idx, p2_idx, bits1, bits2, row_gate), in_dims[:6]))
+    P, D = pop.shape[1:]
+    offset = (torch.arange(C, dtype=torch.int32, device=pop.device) * P)[:, None]
+    out = evolve(pop.reshape(C * P, D).contiguous(),
+                 (p1_idx + offset).reshape(C * P),
+                 (p2_idx + offset).reshape(C * P),
+                 bits1.reshape(C * P, -1).contiguous(),
+                 bits2.reshape(C * P, -1).contiguous(),
+                 row_gate.reshape(C * P, 1).contiguous(),
+                 pm_gene=pm_gene, mut_scale=mut_scale)
+    return out.reshape(C, P, D), 0
 
 
 def bwo_evolve(pop, fit, key, *, pm: float = 0.4, pm_gene: float = 0.1,

@@ -7,8 +7,10 @@ the card, a thin CLI over the ``FLConfig`` experiment facade
         --clients 3 --rounds 2 --train 90 --test 30 --pop 2 --generations 1
 
 The flags are the reference driver's, plus ``--bwo-kernel`` and
-``--device``.  ``--engine batched`` and ``--audit`` are not ported yet
-and raise.
+``--device``.  On the card ``--engine auto`` runs the batched engine (one
+vmapped program over the clients); on the CPU it keeps the conv task
+sequential, and ``--engine batched --vectorize vmap|scan`` batches it
+anyway.  ``--audit`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -47,15 +49,16 @@ def main():
                     help="Dirichlet concentration for --non-iid")
     ap.add_argument("--engine", default="auto", type=validate_engine,
                     metavar="auto|batched|sequential",
-                    help="round engine; the port runs sequential (auto "
-                         "resolves to it, batched is not ported yet)")
+                    help="round engine (auto: batched, except conv "
+                         "tasks on the CPU)")
     ap.add_argument("--vectorize", default="auto", type=validate_vectorize,
                     metavar="auto|vmap|scan[:k]|unroll",
                     help="client-axis traversal of the batched engine")
     ap.add_argument("--rounds-per-dispatch", default="1",
                     type=validate_rounds_per_dispatch, metavar="auto|R",
-                    help="rounds per dispatch; the sequential engine runs "
-                         "round by round")
+                    help="rounds per dispatch; fused rounds are not "
+                         "ported yet, so the batched engine takes 1 or "
+                         "auto (= 1)")
     ap.add_argument("--pipeline-blocks", nargs="?", const="on",
                     default="auto", type=validate_pipeline_blocks,
                     metavar="auto|on|off",

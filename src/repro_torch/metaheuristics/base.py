@@ -42,3 +42,14 @@ def best_member(state: State):
 def select_best(pop, fit, n):
     idx = torch.argsort(fit, stable=True)[:n]
     return pop[idx], fit[idx]
+
+
+def keep_incumbent(pop, fit, new_pop, new_fit):
+    """Elitism: the new generation's worst member becomes the incumbent
+    best (the reference's ``new_pop.at[worst].set(pop[best])``), written
+    out of place, so it holds under vmap with a per-client ``worst``."""
+    worst = torch.argmax(new_fit)
+    best = torch.argmin(fit)
+    at = torch.arange(new_fit.shape[0], device=new_fit.device) == worst
+    return (torch.where(at[:, None], pop[best][None], new_pop),
+            torch.where(at, fit[best], new_fit))

@@ -112,7 +112,10 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
         raise NotImplementedError(f"uniform is ported for float32, got {dtype}")
     shape = _shape(shape)
     b = bits(key, shape)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # the float in [1, 2) with mantissa m = b >> 9, less 1, is m * 2^-23
+    # exactly; computed so, not by a bit cast, since older torch has no
+    # vmap rule for a dtype view
+    f = (b >> 9).to(torch.float32) * (1.0 / (1 << 23))
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
     hi = torch.tensor(maxval, dtype=dtype, device=key.device)
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the

@@ -145,3 +145,44 @@ def test_cpu_tensors_take_the_plain_version():
             torch.zeros(P, 384, dtype=torch.int32),
             torch.zeros(P, 384, dtype=torch.int32), torch.ones(P, 1),
             pm_gene=0.1, mut_scale=0.05)
+
+
+def test_update_is_an_operator_torch_can_check():
+    """``ops.evolve`` is a ``torch.library`` operator: its schema, fake
+    (shape-only) kernel and CPU implementation pass ``opcheck``."""
+    P, D = 6, 300
+    pop = torch.randn(P, D)
+    drawn = ops.sample(pop, torch.rand(P), R.PRNGKey(3, "cpu"), pm=0.4,
+                       procreate_frac=0.6)
+    torch.library.opcheck(ops.evolve, drawn,
+                          dict(pm_gene=0.1, mut_scale=0.05))
+
+
+@pytest.mark.parametrize("batched", ["all", "pop-shared"])
+def test_vmapped_update_is_one_call_over_all_rows(monkeypatch, batched):
+    """Under vmap over C clients the update runs once, over C * P rows
+    with each client's parent indices offset by its first row, and equals
+    C single updates bit for bit; an unbatched input (one population for
+    every client's draws) is broadcast."""
+    C, P, D = 4, 5, 130
+    rows = []
+    plain = ref.bwo_evolve_ref
+    monkeypatch.setattr(ref, "bwo_evolve_ref", lambda pop, *a, **kw: (
+        rows.append(tuple(pop.shape)), plain(pop, *a, **kw))[1])
+    keys = R.split(R.PRNGKey(8, "cpu"), C)
+    pops = torch.stack([R.normal(k, (P, D)) for k in keys])
+    drawn = torch.func.vmap(lambda p, k: ops.sample(
+        p, R.uniform(k, (P,)), k, pm=0.4, procreate_frac=0.6))(pops, keys)
+    kw = dict(pm_gene=0.1, mut_scale=0.05)
+    if batched == "pop-shared":
+        drawn = (pops[0],) + drawn[1:]
+        got = torch.func.vmap(lambda *a: ops.evolve(*a, **kw),
+                              in_dims=(None, 0, 0, 0, 0, 0))(*drawn)
+        want = torch.stack([ops.evolve(drawn[0], *(t[c] for t in drawn[1:]),
+                                       **kw) for c in range(C)])
+    else:
+        got = torch.func.vmap(lambda *a: ops.evolve(*a, **kw))(*drawn)
+        want = torch.stack([ops.evolve(*(t[c] for t in drawn), **kw)
+                            for c in range(C)])
+    assert rows[0] == (C * P, D) and len(rows) == 1 + C
+    assert torch.equal(got, want)

@@ -67,7 +67,40 @@ def test_client_update_matches_reference(world, case):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-def test_masked_update_belongs_to_the_batched_engine(world):
-    _, _, _, ttask, _ = world
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        client.make_client_update(ttask, client.ClientHP(), bwo(), masked=True)
+@pytest.mark.parametrize("kernel", [False, True], ids=["composed", "kernel"])
+def test_masked_update_belongs_to_the_batched_engine(world, kernel):
+    """The masked update (a client's row of a pad+mask stack) against the
+    reference's: three valid batches padded to five, fewer valid batches
+    than fitness batches' worth of distinct ones.  Padded batches take no
+    SGD step, hold the key carry, and are never scored."""
+    jtrain, ttrain, jtask, ttask, jparams = world
+    hp_kw = dict(local_epochs=2, mh_pop=3, mh_generations=2,
+                 fitness_batches=4)
+    jdata = jloader.batch_dataset({k: v[:30] for k, v in jtrain.items()}, 10)
+    tdata = loader.batch_dataset({k: v[:30] for k, v in ttrain.items()}, 10)
+    jpad = jax.tree.map(lambda a: np.concatenate(
+        [np.asarray(a), np.zeros((2,) + a.shape[1:], a.dtype)]), jdata)
+    tpad = tree.map(lambda a: torch.cat([a, a.new_zeros((2, *a.shape[1:]))]),
+                    tdata)
+    mask = np.arange(5) < 3
+    jupdate = jax.jit(jclient.make_client_update(
+        jtask, jclient.ClientHP(**hp_kw), jbwo(use_pallas=kernel),
+        masked=True))
+    tupdate = client.make_client_update(
+        ttask, client.ClientHP(**hp_kw), bwo(use_kernel=kernel), masked=True)
+    jk = jax.random.PRNGKey(6)
+    jscore, jout = jupdate(jparams, jpad, mask, jk)
+    tscore, tout = tupdate(params_from_jax(jax.tree.map(np.asarray, jparams),
+                                           "cpu"), tpad, torch.as_tensor(mask),
+                           R.as_key(np.asarray(jk), "cpu"))
+    np.testing.assert_allclose(float(tscore), float(jscore), **TOL)
+    for g, w in zip(tree.leaves(tout), jax.tree.leaves(jout)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    # and the same client unpadded, in the port
+    uscore, uout = client.make_client_update(
+        ttask, client.ClientHP(**hp_kw), bwo(use_kernel=kernel))(
+        params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"), tdata,
+        R.as_key(np.asarray(jk), "cpu"))
+    assert float(uscore) == float(tscore)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(uout),
+                                                 tree.leaves(tout)))

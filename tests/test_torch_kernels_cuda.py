@@ -64,6 +64,33 @@ def test_cuda_kernel_matches_plain_version(P, D, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+def test_vmapped_generation_is_one_launch_for_every_client():
+    """Under torch.func.vmap over C = 10 clients of P = 6 rows, a BWO
+    generation is one launch over the 60 rows, equal bit for bit to a loop
+    of one launch a client; past the grid's rows it raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    C, P, D = 10, 6, 4097
+    keys = R.split(R.PRNGKey(77, "cuda"), C)
+    pops = torch.stack([R.normal(k, (P, D)) for k in keys])
+    fits = torch.stack([R.uniform(R.split(k)[1], (P,)) for k in keys])
+    before = kernel_mod.launches
+    got = torch.func.vmap(ops.bwo_evolve)(pops, fits, keys)
+    torch.cuda.synchronize()
+    assert kernel_mod.launches == before + 1
+    want = torch.stack([ops.bwo_evolve(pops[c], fits[c], keys[c])
+                        for c in range(C)])
+    assert kernel_mod.launches == before + 1 + C
+    assert torch.equal(got, want)
+    big = kernel_mod.MAX_ROWS // P + 1
+    with pytest.raises(ValueError, match="grid"):
+        torch.func.vmap(ops.bwo_evolve)(
+            pops[:1, :, :8].expand(big, P, 8).contiguous(),
+            fits[:1].expand(big, P).contiguous(),
+            keys[:1].expand(big, 2).contiguous())
+
+
 def _qkv(B, Sq, Sk, H, KV, hd, qdt, kvdt, seed):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, Sq, H, hd, generator=g).to("cuda", qdt)

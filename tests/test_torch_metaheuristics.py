@@ -10,7 +10,7 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.metaheuristics import base as jbase  # noqa: E402
+from repro.metaheuristics import REGISTRY as JREGISTRY, base as jbase  # noqa: E402
 from repro.metaheuristics.bwo import bwo as jbwo  # noqa: E402
 from repro_torch import random as R  # noqa: E402
 from repro_torch.metaheuristics import REGISTRY, base  # noqa: E402
@@ -86,4 +86,67 @@ def test_selection_is_stable_on_ties():
 
 
 def test_registry_holds_the_ported_metaheuristics():
-    assert set(REGISTRY) == {"bwo"}
+    assert set(REGISTRY) == set(JREGISTRY) == {"bwo", "pso", "gwo", "sca",
+                                               "avo"}
+    from repro.core.api import strategy_names as jstrategy_names
+    from repro_torch.core.api import strategy_names
+    assert strategy_names() == jstrategy_names()
+
+
+def _close_tree(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        if k == "t":
+            assert int(got[k]) == int(want[k])
+        else:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("name", ["pso", "gwo", "sca", "avo"])
+@pytest.mark.parametrize("P,D", [(6, 300), (4, 129), (2, 50), (1, 20)])
+def test_other_metaheuristics_match_reference(name, P, D):
+    """Init and four generations under the same keys: every state entry
+    (PSO's velocities and bests too) within 1e-5.  Populations of 2 and 1
+    are fewer than GWO's three leaders and AVO's two, which the
+    reference's clamped indexing repeats."""
+    jfit, tfit = _fitness(D, seed=D + len(name))
+    x0 = np.random.default_rng(3).normal(size=D).astype(np.float32)
+    jk0, jk1 = jax.random.split(jax.random.PRNGKey(P + D))
+    jmh, tmh = JREGISTRY[name](), REGISTRY[name]()
+    jstate = jmh.init(jk0, jnp.asarray(x0), P, jfit)
+    tstate = tmh.init(tkey(jk0), torch.as_tensor(x0), P, tfit)
+    _close_tree(tstate, jstate)
+    for k in jax.random.split(jk1, 4):
+        jstate = jmh.step(k, jstate, jfit)
+        tstate = tmh.step(tkey(k), tstate, tfit)
+        _close_tree(tstate, jstate)
+
+
+@pytest.mark.parametrize("name", ["bwo", "bwo-kernel", "pso", "gwo", "sca",
+                                  "avo"])
+def test_steps_under_vmap_match_a_loop(name):
+    """Each client's own ``worst``, ``order`` and keys: a vmapped step over
+    three clients equals three single steps, bit for bit."""
+    P, D, C = 5, 64, 3
+    mh = (bwo(use_kernel=True) if name == "bwo-kernel"
+          else REGISTRY[name]())
+    target = torch.as_tensor(
+        np.random.default_rng(4).normal(size=(C, D)).astype(np.float32))
+    x0 = torch.as_tensor(
+        np.random.default_rng(5).normal(size=(C, D)).astype(np.float32))
+    keys = R.split(R.PRNGKey(11, "cpu"), C)
+
+    def run(x, tgt, key):
+        def fit(p):
+            return torch.sum((p - tgt) ** 2, dim=1)
+        k0, k1 = R.split(key)
+        state = mh.init(k0, x, P, fit)
+        for k in R.split(k1, 2):
+            state = mh.step(k, state, fit)
+        return base.best_member(state)
+
+    got = torch.func.vmap(run)(x0, target, keys)
+    for c in range(C):
+        want = run(x0[c], target[c], keys[c])
+        assert all(torch.equal(g[c], w) for g, w in zip(got, want))

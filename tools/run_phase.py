@@ -5,11 +5,21 @@ that ``.gitignore`` lists) can be compared on one card in one run.
 
     python3 tools/run_phase.py 10 [TREE]      # ssm_scan (phase 10)
     python3 tools/run_phase.py 7 [TREE]       # flash_attention (phase 7)
+    python3 tools/run_phase.py seq [TREE]     # sequential FL rounds
+    python3 tools/run_phase.py 3b             # gradient against float64
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
 then a JSON line of its times by shape.  Run each tree in its own process:
 the two trees' packages share a name.
+
+``seq`` needs nothing of the tree's ``chip_smoke.py`` but its path setup:
+it runs ``FLConfig(bwo_kernel=True, device="cuda", engine="sequential")``
+through ``build_experiment`` for 4 rounds (the first warms up) and times
+one client's local SGD (2 epochs of 10 steps), so a tree from before the
+batched engine can be compared.  ``3b`` runs this tree's phase 3b under
+cuDNN's settings in turn (as set, ``benchmark``, ``deterministic``,
+disabled) and with TF32 allowed, which its limit must refuse.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from pathlib import Path
 
 def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("7", "10"):
+    if phase not in ("7", "10", "seq", "3b"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -35,10 +45,86 @@ def main() -> int:
     mem, f32, bf16, exp = cs.card_rates(torch.cuda.get_device_name(0))
     if phase == "10":
         _, times = cs.ssm_phase(torch, mem, f32, exp)
-    else:
+    elif phase == "7":
         _, times = cs.flash_phase(torch, mem, bf16)
-    print(json.dumps({"tree": str(tree), "phase": int(phase), "ms": times}))
+    elif phase == "seq":
+        times = sequential_rounds(torch)
+    else:
+        times = grad_variants(torch, cs)
+    print(json.dumps({"tree": str(tree), "phase": phase, "ms": times}))
     return 0
+
+
+def sequential_rounds(torch):
+    """Round times (ms) of the sequential engine at full width, and one
+    client's local SGD."""
+    import time
+    from repro_torch import random
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.core.client import ClientHP, make_local_sgd
+    from repro_torch.data import synthetic
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", max_rounds=4, tau=1.01,
+                   engine="sequential")
+    exp = build_experiment(cfg)
+    rounds = []
+    for _ in range(cfg.max_rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.server.run_round()
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    print(f"  sequential rounds (ms; the first warms up): {rounds}")
+    task = synthetic.cnn_task()
+    data = exp.server.client_data[0]
+    params = exp.server.global_params
+    sgd = make_local_sgd(task, ClientHP(local_epochs=2))
+    key = random.PRNGKey(5, torch.device("cuda"))
+    sgd(params, data, key)
+    sgd_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd(params, data, key)
+        torch.cuda.synchronize()
+        sgd_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  one client's local SGD, 20 steps (ms): {sgd_ms}")
+    return {"rounds": rounds, "local_sgd": sgd_ms}
+
+
+def grad_variants(torch, cs):
+    """Phase 3b's largest errors under each cuDNN setting and with TF32."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    variants = {"as set": {}, "cudnn.benchmark": {"benchmark": True},
+                "cudnn.deterministic": {"deterministic": True},
+                "cuDNN disabled": {"enabled": False},
+                "TF32 allowed (must fail the limit)": {"allow_tf32": True}}
+    out = {}
+    for label, flags in variants.items():
+        saved = {k: getattr(cudnn, k) for k in flags}
+        saved_mm = matmul.allow_tf32
+        try:
+            for k, v in flags.items():
+                setattr(cudnn, k, v)
+            matmul.allow_tf32 = bool(flags.get("allow_tf32", saved_mm))
+            print(f"-- {label}: cudnn enabled {cudnn.enabled}, benchmark "
+                  f"{cudnn.benchmark}, deterministic {cudnn.deterministic}, "
+                  f"allow_tf32 {cudnn.allow_tf32}, matmul allow_tf32 "
+                  f"{matmul.allow_tf32}")
+            r = cs.grad_phase(torch, strict=False)
+            out[label] = {how: {
+                "flips": r[how]["flips"],
+                "max_op_rel_err": max(r[how]["op_rel_err"].values()),
+                "max_leaf_rel_err": max(r[how]["leaf_rel_err"].values()),
+                "max_leaf_rel_err_free": max(
+                    r[how]["leaf_rel_err_free"].values())}
+                for how in ("vmap", "loop")}
+            print(f"   {json.dumps(out[label])}")
+        finally:
+            for k, v in saved.items():
+                setattr(cudnn, k, v)
+            matmul.allow_tf32 = saved_mm
+    return out
 
 
 if __name__ == "__main__":
