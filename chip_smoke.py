@@ -31,7 +31,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    after, and the run's peak device memory; 4b. the same rounds on both
    engines in turn, each round from a common start (3 and 30 launches a
    round), held to each other (the same winner; scores and test loss
-   within 1e-2, relative);
+   within 1e-2, relative); 4c. 10 rounds with
+   ``rounds_per_dispatch="auto"`` (5 on the batched engine) through
+   ``run()``: two pipelined blocks, each one replay of a CUDA graph
+   captured once (30 ``bwo_evolve`` launches by replay, 3 in the warm-up
+   round before the capture, with every launch counter set to 0 just
+   before and read just after), the uplink exactly 10 x 9,861,328 bytes,
+   the first block against 5 eager rounds from the same start (the same
+   winners; round 0's scores within 1e-2, the largest difference
+   printed), the capture time, the amortized round beside the single
+   rounds, the peak memory, ``timing_summary()`` of the serial and the
+   pipelined driver, the card's busy share in an eager round and in a
+   replayed block (``torch.profiler``), and a block against 5 eager
+   rounds again under ``cudnn.deterministic``, bit for bit;
 5. one round of the default (composed) FedBWO on each engine, no launch;
 6. the kernel route on the card (batched) against the port's CPU route
    (sequential, the route the tests hold against the JAX reference) on a
@@ -1265,10 +1277,232 @@ def fl_run(torch, counters, cfg, want_engine, want_launches, title):
     return result, launches["bwo_evolve"], peak
 
 
+def busy_share(torch, fn):
+    """The card's busy share while ``fn`` runs: the time covered by at
+    least one kernel, copy or fill that ``torch.profiler`` reads (CUDA
+    activity only, so no host op is traced; overlapping ones counted once)
+    over the host's wall time, ending in a sync.  None where the profiler
+    reads no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:                      # the union of the spans, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e6
+    return (busy / wall if busy > 0 else None), busy, wall
+
+
+def exact_block(torch, cfg, R):
+    """One fused block against R eager rounds from one start with cuDNN
+    held to its deterministic algorithms (in both, for these runs only):
+    the replay must equal the eager rounds bit for bit, scores, winners
+    and model, which says that what parts them under the default
+    algorithms is cuDNN's run-to-run sums, not the graph."""
+    from repro_torch import tree
+    from repro_torch.core import build_experiment
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        fused = build_experiment(cfg).server
+        twin = build_experiment(
+            dataclasses.replace(cfg, rounds_per_dispatch=1)).server
+        twin.global_params = tree.map(torch.clone, fused.global_params)
+        twin.rng = fused.rng.clone()
+        want = [twin.run_round() for _ in range(R)]
+        got = fused.run_block(R)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic = saved
+    same_rounds = all(g["best_client"] == w["best_client"]
+                      and g["scores"] == w["scores"]
+                      for g, w in zip(got, want))
+    same_model = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(fused.global_params), tree.leaves(twin.global_params)))
+    print(f"  cudnn.deterministic: a replayed block against {R} eager "
+          f"rounds from one start: scores and winners bit for bit "
+          f"{same_rounds}, model bit for bit {same_model}")
+    check(same_rounds and same_model, "under cudnn.deterministic the "
+          "replayed block is not the eager rounds bit for bit")
+
+
+def fused_phase(torch, counters, single_times=None):
+    """Phase 4c: 10 full-width FedBWO rounds with rounds_per_dispatch="auto"
+    (5 on the batched engine) through ``build_experiment(...).run()``, the
+    pipelined driver: two blocks, each one replay of a CUDA graph captured
+    at the first.  First 5 eager rounds of a twin from the same start,
+    which the first block must match (the same winners; round 0's scores
+    within ENGINE_RTOL, as the engines': a replay runs the kernels an eager
+    round runs, but cuDNN's grouped weight gradient sums in an order that
+    changes from run to run, and later rounds start from models it has
+    parted); then, with the graph captured, the serial fused driver and the
+    pipelined one again, the card's busy share in one eager round and one
+    replayed block, and ``exact_block``.  Returns the launches on the fused
+    path and the numbers for PERF.md."""
+    from repro_torch import tree
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.core.comm import CommMeter
+    from repro_torch.core.protocol import run_federated
+    print("== 4c. fused rounds: FedBWO, paper CNN at full width, bwo_kernel, "
+          "rounds_per_dispatch auto, 10 rounds (two pipelined blocks, each "
+          "one CUDA graph replay)")
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", rounds_per_dispatch="auto", max_rounds=10,
+                   tau=1.01)
+    exp = build_experiment(cfg)
+    server = exp.server
+    R = server.rounds_per_dispatch
+    check(server.engine == "batched" and R == 5 and server.pipeline_blocks,
+          f"auto resolved to engine {server.engine}, rounds_per_dispatch "
+          f"{R}, pipeline_blocks {server.pipeline_blocks}")
+    twin = build_experiment(dataclasses.replace(cfg, rounds_per_dispatch=1))
+    twin.server.global_params = tree.map(torch.clone, server.global_params)
+    twin.server.rng = server.rng.clone()
+
+    # the eager twin: R single rounds from the same start
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager, eager_times = [], []
+    for _ in range(R):
+        t0 = time.perf_counter()
+        eager.append(twin.server.run_round())
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    eager_peak = torch.cuda.max_memory_allocated()
+
+    # the main path of this phase: counts set to 0 just before, read after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    result = exp.run(verbose=True)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    engine = server._engine
+    check(len(engine.graphs) == 1, f"{len(engine.graphs)} graphs captured")
+    (graph,) = engine.graphs.values()
+    per_round = cfg.mh_generations
+    replayed = graph.replays * graph.launches
+    print(f"  capture {graph.capture_s:.3f} s (first block's dispatch, "
+          f"warm-up round and capture: "
+          f"{server.meter.block_timings[0].dispatch_s:.3f} s); "
+          f"{len(result.logs)} rounds in {wall:.2f} s; bwo_evolve "
+          f"{launches['bwo_evolve']} launches: {replayed} by {graph.replays} "
+          f"replays of a graph holding {graph.launches}, "
+          f"{engine.warmup_launches} in the warm-up round")
+    check(len(result.logs) == cfg.max_rounds, f"ran {len(result.logs)} rounds")
+    check(all(log.info["engine"] == "fused" for log in result.logs),
+          "a round ran outside the fused blocks")
+    check(graph.replays == cfg.max_rounds // R and
+          graph.launches == R * per_round and replayed == 30,
+          f"replays {graph.replays} x {graph.launches} launches, "
+          f"expected 2 x {R * per_round}")
+    check(engine.warmup_launches == per_round,
+          f"the warm-up round launched {engine.warmup_launches}")
+    check(launches["bwo_evolve"] == replayed + engine.warmup_launches,
+          f"bwo_evolve counted {launches['bwo_evolve']}, expected "
+          f"{replayed} + {engine.warmup_launches}")
+    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
+          "the FL path ran attention or the scan")
+    uplink = exp.meter.total_uplink
+    check(uplink == cfg.max_rounds * 9_861_328,
+          f"uplink {uplink} != 10 x 9,861,328")
+    for log in result.logs:
+        check(math.isfinite(log.test_loss) and
+              all(math.isfinite(s) for s in log.info["scores"]),
+              f"non-finite loss or score in round {log.round}")
+    check(all(t.is_cuda and bool(torch.isfinite(t).all())
+              for t in tree.leaves(server.global_params)),
+          "global params not finite on the card")
+    print(f"  uplink {uplink} bytes = 10 x 9861328")
+
+    diffs = []
+    for r, (got, want) in enumerate(zip(result.logs[:R], eager)):
+        diffs.append(max(abs(s - t) / abs(t) for s, t in zip(
+            got.info["scores"], want["scores"])))
+        print(f"  round {r}: winner {got.info['best_client']} (replay) vs "
+              f"{want['best_client']} (eager), max relative score diff "
+              f"{diffs[-1]:.3e}")
+        check(got.info["best_client"] == want["best_client"],
+              f"the first block and the eager rounds differ in winner, "
+              f"round {r}")
+    diff = max(diffs)
+    # round 0 starts both from one model: the engines' one-round bound;
+    # later rounds start from models that cuDNN's atomics have already
+    # parted, and exact_block below shows the replay itself exact
+    print(f"  largest relative score difference, first block against {R} "
+          f"eager rounds from a common start: {diff:.3e}; round 0's "
+          f"{diffs[0]:.3e} (tol {ENGINE_RTOL})")
+    check(diffs[0] <= ENGINE_RTOL, f"round 0 differs by {diffs[0]:.3e}")
+    amortized = [log.round_time_s for log in result.logs]
+    print(f"  round_time_s amortized (pipelined, capture included) "
+          f"{amortized[0]:.3f}; eager twin {eager_times}; phase 4 "
+          f"single rounds {single_times}")
+    print(f"  peak device memory: fused run {peak / 2**30:.2f} GiB "
+          f"(reserved {reserved / 2**30:.2f}), eager twin "
+          f"{eager_peak / 2**30:.2f} GiB")
+    check(peak < 2 * eager_peak, "the block's peak is not near one round's")
+    drivers = {"pipelined, capture included": server.meter.timing_summary()}
+    warm_rounds = {}
+
+    # the serial fused driver and the pipelined one again, graph captured
+    for label, pipe in (("serial", False), ("pipelined", True)):
+        server.pipeline_blocks = pipe
+        n0 = len(server.meter.block_timings)
+        logs = run_federated(server, exp.eval_data, exp.stop)
+        check(len(logs) == cfg.max_rounds and all(
+            math.isfinite(l.test_loss) for l in logs),
+              f"the {label} driver's rounds")
+        warm_rounds[label] = sorted({l.round_time_s for l in logs})
+        drivers[label] = CommMeter(
+            0, 0, block_timings=server.meter.block_timings[n0:]
+        ).timing_summary()
+    check(len(engine.graphs) == 1 and graph.replays == 3 * 2,
+          "a block shape was captured twice")
+    for label, summary in drivers.items():
+        print(f"  timing_summary, {label}: {json.dumps(summary)}")
+    print(f"  round_time_s amortized, graph captured: serial "
+          f"{warm_rounds['serial']}, pipelined {warm_rounds['pipelined']}")
+
+    eager_share = busy_share(torch, twin.server.run_round)
+    block_share = busy_share(torch, lambda: server.run_block(
+        R, exp.eval_data, eval_every=1))
+    for label, (share, busy, secs) in (("one eager round", eager_share),
+                                       ("one replayed block", block_share)):
+        print(f"  device busy share, {label}: "
+              + ("not measured (the profiler read no device time)"
+                 if share is None else
+                 f"{share:.3f} ({busy:.3f} s of device time in "
+                 f"{secs:.3f} s)"))
+    exact_block(torch, cfg, R)
+    return {"launches": launches["bwo_evolve"], "replays": graph.replays,
+            "capture_s": graph.capture_s, "round_time_s": amortized[0],
+            "warm_round_time_s": warm_rounds,
+            "eager_round_time_s": eager_times, "peak_gib": peak / 2**30,
+            "max_rel_score_diff": diff,
+            "sync_fraction": {k: v["sync_fraction"]
+                              for k, v in drivers.items()},
+            "busy_share": {"eager round": eager_share[0],
+                           "replayed block": block_share[0]}}
+
+
 def fl_phases(torch, counters):
     """Phases 4-6.  Returns bwo_evolve's launches on the main path, its
-    launches counted in each round of phase 4b by engine, and each
-    engine's round times there."""
+    launches counted in each round of phase 4b by engine, each engine's
+    round times there, and phase 4c's numbers."""
     from repro_torch.configs.paper_cnn import CNNConfig
     from repro_torch.core import FLConfig, build_experiment
     from repro_torch.data.synthetic import cnn_task
@@ -1289,6 +1523,8 @@ def fl_phases(torch, counters):
     print(f"  round_time_s batched {times['batched']} sequential "
           f"{times['sequential']}; peak device memory of the batched run "
           f"(phase 4) {peak / 2**30:.2f} GiB")
+    fused = fused_phase(torch, counters,
+                        [log.round_time_s for log in result.logs])
 
     none = {"batched": 0, "sequential": 0}
     lockstep(torch, counters, dataclasses.replace(cfg, bwo_kernel=False), 1,
@@ -1331,7 +1567,7 @@ def fl_phases(torch, counters):
                                      max_rounds=1), "batched", 0,
            "6c. one FedGWO round, full width, batched engine")
     torch.cuda.empty_cache()
-    return launches, per_round_counted, times
+    return launches, per_round_counted, times, fused
 
 
 def main() -> int:
@@ -1386,8 +1622,8 @@ def main() -> int:
     # ------------------------------------------- 3.-6. the FL path --
     bwo = bwo_phase(torch, mem_rate, f32_rate)
     grad_phase(torch)
-    bwo["launches"], bwo["launches_per_round"], bwo["round_time_s"] = (
-        fl_phases(torch, counters))
+    (bwo["launches"], bwo["launches_per_round"], bwo["round_time_s"],
+     bwo["fused_rounds"]) = fl_phases(torch, counters)
 
     fa, fa_times = flash_phase(torch, mem_rate, bf16_rate)
     serve_launches, olmo_routes = serve_phase(torch, counters,

@@ -61,8 +61,14 @@ class FLConfig:
     # knobs.ENGINES; auto = batched, except conv tasks on the CPU
     engine: str = "auto"
     vectorize: str = "auto"         # knobs.VECTORIZE_MODES (batched engine)
-    rounds_per_dispatch: Any = 1    # "auto" = 1 until fused rounds land
-    pipeline_blocks: Any = "auto"   # "auto" = off until fused rounds land
+    # rounds fused into one dispatch ("auto" | int >= 1): R > 1 runs
+    # blocks of R rounds, one CUDA graph replay each on the card, with one
+    # host copy per block; "auto" = 5 on the batched engine, 1 on the
+    # sequential one
+    rounds_per_dispatch: Any = 1
+    # double-buffer fused blocks ("auto" | "on" | "off"); "auto" = on
+    # whenever rounds_per_dispatch > 1 on the batched engine
+    pipeline_blocks: Any = "auto"
     # evaluate the global model every k-th round (the last round always)
     eval_every: int = 1
     max_rounds: int = 8

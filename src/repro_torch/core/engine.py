@@ -21,15 +21,23 @@ server aggregation — as one program over a leading client axis:
 * the FedX argmin runs on the device; the loop's winner reduction is a
   streaming ``torch.where``, so it holds O(2 x model) weights instead of
   O(n_clients x model), and FedAvg's loop keeps a running mean the same
-  way.
+  way;
+* ``make_fused_rounds`` runs R rounds as one block with the server's key
+  schedule derived on the device and the eval cadence inside the block;
+  on the card :meth:`BatchedRoundEngine.run_block` captures each block
+  shape once as a CUDA graph and replays it (one launch from the host per
+  block), on the CPU it runs the same block eagerly;
+* ``pipeline_blocks`` keeps up to ``depth`` blocks in flight, so the host
+  finishes block k while the card runs block k+1.
 
-Not here yet: fused multi-round blocks and pipelined dispatch
-(``make_fused_rounds``, ``pipeline_blocks``; ROADMAP.md, queue 1, item 9)
-and the mesh schedules (``make_sharded_*``, item 10).
+Not here yet: the mesh schedules (``make_sharded_*``; ROADMAP.md, queue
+1, item 10).
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -37,7 +45,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import random, tree
 from repro_torch.core.client import ClientHP, Task, make_update
 from repro_torch.core.knobs import parse_vectorize
+from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
 from repro_torch.metaheuristics import Metaheuristic
+from repro_torch.metaheuristics.base import take
 
 
 def resolve_vectorize(mode: str, device) -> str:
@@ -181,11 +191,11 @@ def make_batched_fedx_round(task: Task, hp: ClientHP, mh: Metaheuristic,
             scores, new = _vmap_clients(update, global_params, data, mask,
                                         keys)
             best = torch.argmin(scores)
-            return tree.map(lambda a: a[best], new), scores, best
+            return tree.map(lambda a: take(a, best), new), scores, best
         return round_fn
 
     def round_fn(global_params, data, mask, keys):
-        best_fit = torch.tensor(float("inf"), device=keys.device)
+        best_fit = torch.full((), float("inf"), device=keys.device)
         winner, scores = global_params, []
         for k in range(keys.shape[0]):
             score, params = update(global_params, *_row(data, mask, keys, k))
@@ -228,6 +238,153 @@ def make_batched_fedavg_round(task: Task, hp: ClientHP, device,
     return round_fn
 
 
+def _fedavg_participants(round_fn, global_params, data, mask, sel_key, keys,
+                         n_clients: int, m: int):
+    """Sample-then-stack: the ``m`` participants drawn on the device with
+    the reference's ``choice``, their shards, mask rows and keys gathered,
+    and the round run over them only.  -> (avg_params, scores, sel)."""
+    sel = random.choice(sel_key, n_clients, (m,))
+    sub = tree.map(lambda a: a[sel], data)
+    msk = None if mask is None else mask[sel]
+    avg, scores = round_fn(global_params, sub, msk, keys[sel])
+    return avg, scores, sel
+
+
+# -------------------------------------------------------------- fused --
+def eval_due(n_rounds: int, eval_every: int, round_offset: int) -> tuple:
+    """Which rounds of a block starting after ``round_offset`` rounds
+    evaluate: round ``round_offset + i`` when ``(round_offset + i + 1) %
+    eval_every == 0``, and always the block's last round; none when
+    ``eval_every`` is 0."""
+    if eval_every <= 0:
+        return (False,) * n_rounds
+    return tuple((round_offset + i + 1) % eval_every == 0 or i == n_rounds - 1
+                 for i in range(n_rounds))
+
+
+def make_fused_rounds(task: Task, strategy, hp: ClientHP,
+                      rounds_per_dispatch: int, *, n_clients: int, device,
+                      vectorize: str = "auto", eval_every: int = 0):
+    """Fuse ``rounds_per_dispatch`` FL rounds into one block.
+
+    Returns ``block_fn(global_params, rng, data, mask, eval_batch,
+    round_offset) -> (params, rng, logs)``, where ``logs`` holds stacked
+    per-round device tensors:
+
+    * FedX:   ``{"scores": (R, n), "best": (R,)}``
+    * FedAvg: ``{"scores": (R, m), "participants": (R, m)}``
+    * plus ``{"eval_loss": (R,), "eval_acc": (R,)}`` when ``eval_every >
+      0`` and an ``eval_batch`` is passed: ``task.loss_fn`` on the
+      held-out batch on the rounds :func:`eval_due` names, NaN on the
+      others.
+
+    Each round derives its keys on the device exactly as
+    ``Server.run_round`` does, ``random.split(rng, n_clients + 2) ->
+    (rng, sel_key, client_keys)``, and runs the single-round engine's
+    round function (:func:`make_batched_fedx_round` /
+    :func:`make_batched_fedavg_round`), so a block is bit-identical to R
+    ``run_round`` calls.  FedAvg at ``client_ratio < 1`` draws its
+    participants on the device and gathers inside the block.
+
+    Nothing in a block reads a tensor on the host, so the card can
+    capture it as one CUDA graph (:meth:`BatchedRoundEngine.run_block`).
+    ``round_offset`` is a host integer: it fixes which rounds evaluate
+    (the reference traces it; a graph fixes it per capture).
+    """
+    n_rounds = int(rounds_per_dispatch)
+    if n_rounds < 1:
+        raise ValueError(
+            f"rounds_per_dispatch={rounds_per_dispatch!r} must be >= 1")
+    is_fedx = getattr(strategy, "is_fedx", False)
+    if is_fedx:
+        round_fn = make_batched_fedx_round(task, hp, strategy.mh, device,
+                                           vectorize=vectorize)
+    else:
+        round_fn = make_batched_fedavg_round(task, hp, device,
+                                             vectorize=vectorize)
+        m = max(int(strategy.client_ratio * n_clients), 1)
+
+    def block_fn(global_params, rng, data, mask, eval_batch, round_offset):
+        due = eval_due(n_rounds,
+                       eval_every if eval_batch is not None else 0,
+                       int(round_offset))
+        params, logs = global_params, []
+        for i in range(n_rounds):
+            # Server.run_round's key schedule, derived on the device
+            keys = random.split(rng, n_clients + 2)
+            rng, sel_key, ckeys = keys[0], keys[1], keys[2:]
+            if is_fedx:
+                params, scores, best = round_fn(params, data, mask, ckeys)
+                log = {"scores": scores, "best": best}
+            else:
+                params, scores, sel = _fedavg_participants(
+                    round_fn, params, data, mask, sel_key, ckeys,
+                    n_clients, m)
+                log = {"scores": scores, "participants": sel}
+            if any(due):
+                if due[i]:
+                    with torch.no_grad():
+                        loss, acc = task.loss_fn(params, eval_batch)
+                    loss, acc = loss.float(), acc.float()
+                else:
+                    loss = acc = torch.full((), float("nan"),
+                                            device=rng.device)
+                log["eval_loss"], log["eval_acc"] = loss, acc
+            logs.append(log)
+        return params, rng, {k: torch.stack([log[k] for log in logs])
+                             for k in logs[0]}
+
+    return block_fn
+
+
+class CapturedBlock:
+    """One fused block shape, captured once as a CUDA graph and replayed.
+
+    The graph reads its inputs from static tensors (``params``, ``rng``,
+    the eval batch) and writes its outputs into static tensors of its
+    private memory pool, which it rewrites at every replay.  A call copies
+    the caller's inputs into the static ones, replays, and returns copies
+    of the outputs, all in stream order: block k's outputs are copied out
+    before block k+1's replay is enqueued, and block k's params and rng
+    flow into block k+1's inputs on the stream, with no host round trip.
+
+    The capture records ``bwo_evolve``'s launches without running them;
+    each replay runs them, and counts them (``launches`` a replay).
+    """
+
+    def __init__(self, block_fn, params, rng, data, mask, eval_batch,
+                 round_offset: int, stream):
+        self.params = tree.map(torch.clone, params)
+        self.rng = rng.clone()
+        self.eval_batch = (None if eval_batch is None
+                           else tree.map(torch.clone, eval_batch))
+        self.graph = torch.cuda.CUDAGraph()
+        before = bwo_kernel.launches
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = block_fn(self.params, self.rng, data, mask,
+                                self.eval_batch, round_offset)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = bwo_kernel.launches - before
+        bwo_kernel.launches = before        # recorded, not yet run
+        self.replays = 0
+
+    def __call__(self, params, rng, eval_batch):
+        for dst, src in zip(tree.leaves(self.params), tree.leaves(params)):
+            dst.copy_(src)
+        self.rng.copy_(rng)
+        if eval_batch is not None:
+            for dst, src in zip(tree.leaves(self.eval_batch),
+                                tree.leaves(eval_batch)):
+                dst.copy_(src)
+        self.graph.replay()
+        self.replays += 1
+        bwo_kernel.launches += self.launches
+        params, rng, logs = self.out
+        return (tree.map(torch.clone, params), rng.clone(),
+                {k: v.clone() for k, v in logs.items()})
+
+
 class BatchedRoundEngine:
     """Whole-round executor used by :class:`repro_torch.core.Server`.
 
@@ -243,6 +400,17 @@ class BatchedRoundEngine:
     the round over shape ``(m, ...)``.  The reference's
     ``traced_participant_counts`` counts jit traces; eager torch traces
     nothing, so it has no counterpart here.
+
+    Fused blocks (:meth:`run_block`): one block function per
+    ``(rounds_per_dispatch, eval_every)``, as the reference caches one
+    executable per block shape.  On the card each block shape is captured
+    once as a :class:`CapturedBlock` (``self.graphs``, keyed by the
+    shape, the rounds it evaluates and the eval batch's shapes) after one
+    eager warm-up round on the capture stream, the engine's first only
+    (it loads the kernel library and sets up cuDNN's and cuBLAS's handles
+    and workspaces for that stream); ``warmup_launches`` counts the
+    ``bwo_evolve`` launches that warm-up ran.  A capture that fails
+    raises: there is no eager fallback on the card.
     """
 
     def __init__(self, task: Task, strategy, hp: ClientHP,
@@ -267,7 +435,13 @@ class BatchedRoundEngine:
         self.padded = not bool(mask.all())
         self.mask = mask if self.padded else None
         self.is_fedx = strategy.is_fedx
+        self.device = torch.device(device)
         self.vectorize = resolve_vectorize(hp.vectorize, device)
+        self._task, self._strategy, self._hp = task, strategy, hp
+        self._fused: Dict[tuple, Callable] = {}
+        self.graphs: Dict[tuple, CapturedBlock] = {}
+        self.warmup_launches = 0
+        self._capture_stream = None
         if self.is_fedx:
             self.n_participants = self.n_clients
             self._round = make_batched_fedx_round(
@@ -278,18 +452,122 @@ class BatchedRoundEngine:
             self._round = make_batched_fedavg_round(
                 task, hp, device, vectorize=hp.vectorize)
 
+    def fused_rounds(self, rounds_per_dispatch: int, eval_every: int = 0):
+        """The R-round block function (:func:`make_fused_rounds`) for this
+        engine's task, strategy and data layout, cached per
+        ``(rounds_per_dispatch, eval_every)``."""
+        key = (int(rounds_per_dispatch), int(eval_every))
+        fn = self._fused.get(key)
+        if fn is None:
+            fn = make_fused_rounds(
+                self._task, self._strategy, self._hp, key[0],
+                n_clients=self.n_clients, device=self.device,
+                vectorize=self._hp.vectorize, eval_every=key[1])
+            self._fused[key] = fn
+        return fn
+
+    def run_block(self, global_params, rng, rounds_per_dispatch: int,
+                  eval_batch=None, eval_every: int = 0,
+                  round_offset: int = 0):
+        """Run one fused block: ``-> (params, rng, logs)`` with ``logs``
+        the stacked per-round device tensors, the block's own copies (one
+        device->host copy for the whole block when the caller fetches
+        them).  On the card: one replay of the block's graph, captured at
+        its first use; on the CPU: the block function, eagerly."""
+        if eval_batch is None:
+            eval_every = 0
+        block = self.fused_rounds(rounds_per_dispatch, eval_every)
+        if self.device.type != "cuda":
+            return block(global_params, rng, self.data, self.mask,
+                         eval_batch, round_offset)
+        key = (int(rounds_per_dispatch), int(eval_every),
+               eval_due(int(rounds_per_dispatch), int(eval_every),
+                        int(round_offset)),
+               tuple(tuple(l.shape) for l in tree.leaves(eval_batch))
+               if eval_batch is not None else None)
+        graph = self.graphs.get(key)
+        if graph is None:
+            stream = self._warm_up(global_params, rng, eval_batch,
+                                   eval_every)
+            graph = CapturedBlock(block, global_params, rng, self.data,
+                                  self.mask, eval_batch, round_offset,
+                                  stream)
+            self.graphs[key] = graph
+        return graph(global_params, rng, eval_batch)
+
+    def _warm_up(self, global_params, rng, eval_batch, eval_every: int):
+        """The capture stream, after one eager round on it (the first
+        time only), its results dropped."""
+        if self._capture_stream is not None:
+            return self._capture_stream
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        before = bwo_kernel.launches
+        with torch.cuda.stream(stream):
+            self.fused_rounds(1, eval_every)(global_params, rng, self.data,
+                                             self.mask, eval_batch, 0)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        torch.cuda.synchronize(self.device)
+        self.warmup_launches += bwo_kernel.launches - before
+        self._capture_stream = stream
+        return stream
+
     def fedx_round(self, global_params, keys):
         """-> (winner_params, scores, best_idx), on the device."""
         return self._round(global_params, self.data, self.mask, keys)
 
     def fedavg_round(self, global_params, sel_key, keys):
-        """-> (avg_params, scores, sel), on the device.
+        """-> (avg_params, scores, sel), on the device (sample-then-stack:
+        the participants drawn on the device, the ``(m, ...)`` shards
+        gathered, and the round run over them only)."""
+        return _fedavg_participants(self._round, global_params, self.data,
+                                    self.mask, sel_key, keys,
+                                    self.n_clients, self.n_participants)
 
-        Sample-then-stack: the participants are drawn on the device, the
-        ``(m, ...)`` shards gathered, and the round runs over them only.
-        """
-        sel = random.choice(sel_key, self.n_clients, (self.n_participants,))
-        sub = tree.map(lambda a: a[sel], self.data)
-        mask = None if self.mask is None else self.mask[sel]
-        avg, scores = self._round(global_params, sub, mask, keys[sel])
-        return avg, scores, sel
+
+# ----------------------------------------------------------- pipeline --
+def pipeline_blocks(dispatch: Callable[[Any], Any],
+                    finish: Callable[[Any], Any],
+                    schedule, depth: int = 2,
+                    should_stop: Optional[Callable[[Any], bool]] = None):
+    """Generic double-buffered dispatch/finish driver (the reference's,
+    pure Python).
+
+    Pulls block specs lazily from ``schedule``, keeps up to ``depth``
+    dispatched blocks in flight, and finishes them in dispatch order:
+    with ``depth=2`` block ``k+1`` is dispatched *before* block ``k`` is
+    finished, so the host work inside ``finish`` (the device->host copy
+    and log processing) overlaps block ``k+1``'s run on the card, where a
+    dispatch only enqueues.
+
+    ``should_stop(result)`` is consulted after each finish; once it
+    returns True no further block is dispatched, but already-dispatched
+    blocks are still finished (their side effects — device state, meter
+    entries — have already happened), giving a worst-case overshoot of
+    ``depth - 1`` blocks.  Returns ``(results, kept, stopped)`` where
+    ``results`` covers every dispatched block in order and ``kept``
+    counts the leading results up to and including the one that
+    triggered the stop (``kept == len(results)`` when nothing did) —
+    callers trim their logs to ``results[:kept]``.
+    """
+    if depth < 1:
+        raise ValueError(f"depth={depth} must be >= 1")
+    pending = deque()
+    results: List[Any] = []
+    it = iter(schedule)
+    stopped = False
+    kept: Optional[int] = None
+    while True:
+        while not stopped and len(pending) < depth:
+            try:
+                spec = next(it)
+            except StopIteration:
+                break
+            pending.append(dispatch(spec))
+        if not pending:
+            break
+        res = finish(pending.popleft())
+        results.append(res)
+        if not stopped and should_stop is not None and should_stop(res):
+            stopped, kept = True, len(results)
+    return results, len(results) if kept is None else kept, stopped

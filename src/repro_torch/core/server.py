@@ -20,23 +20,31 @@ round:
                  unstackable client datasets, the CPU's engine for conv
                  tasks, and the baseline of the engine-parity tests.
 
-Fused rounds and pipelined blocks are still to be ported (ROADMAP.md,
-queue 1, item 9): ``rounds_per_dispatch="auto"`` resolves to 1 on both
-engines (the reference's batched engine resolves it to 5), and a forced
-R > 1 raises on the batched engine.
+On top of the batched engine, ``rounds_per_dispatch > 1`` runs whole
+*blocks* of rounds at once (``run_block``,
+:func:`repro_torch.core.engine.make_fused_rounds`): the threefry key
+schedule moves to the device bit for bit, eval runs at a cadence inside
+the block, and the host pays one dispatch and one log copy per R rounds.
+On the card a block is one replay of a captured CUDA graph.
+``run_pipelined`` keeps two blocks in flight.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple, Union
+import math
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch import random, tree
 from repro_torch.core.client import ClientHP, Task, make_update
-from repro_torch.core.comm import CommMeter
-from repro_torch.core.engine import BatchedRoundEngine, task_uses_conv
-from repro_torch.core.knobs import (parse_pipeline_blocks,
+from repro_torch.core.comm import BlockTiming, CommMeter
+from repro_torch.core.engine import (BatchedRoundEngine, pipeline_blocks,
+                                     task_uses_conv)
+from repro_torch.core.knobs import (DEFAULT_PIPELINE_DEPTH,
+                                    DEFAULT_ROUNDS_PER_DISPATCH,
+                                    parse_pipeline_blocks,
                                     parse_rounds_per_dispatch,
                                     validate_engine)
 from repro_torch.metaheuristics import REGISTRY, Metaheuristic
@@ -62,6 +70,38 @@ def get_strategy(name: str, client_ratio: float = 1.0, **mh_kw) -> Strategy:
     raise KeyError(f"unknown strategy {name!r}")
 
 
+@dataclasses.dataclass
+class PendingBlock:
+    """A dispatched fused block: its stacked round logs (the block's own
+    device tensors, still being computed) plus the host bookkeeping
+    needed to finish it."""
+    n_rounds: int
+    round_offset: int         # server.rounds_completed before the block
+    logs: Any                 # stacked per-round device tensors
+    t_dispatched: float       # perf_counter timestamp at dispatch
+    dispatch_s: float         # host time spent enqueueing the dispatch
+    # on the card: recorded on the stream after the block's logs were
+    # copied out; finish_block's copy waits for it, not for later blocks
+    ready: Optional[Any] = None
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    """Outcome of :meth:`Server.run_pipelined`.
+
+    ``infos`` covers every round that actually ran — including the rounds
+    of any block that was already in flight when a stopping condition
+    triggered (the one-block overshoot).  ``kept`` counts the leading
+    infos up to and including the block that triggered the stop (``==
+    len(infos)`` when nothing did); drivers trim their logs to
+    ``infos[:kept]`` while the server's device state, round counter, and
+    CommMeter ledger keep the overshoot rounds.
+    """
+    infos: List[dict]
+    kept: int
+    stopped: bool
+
+
 class Server:
     """Orchestrates FL rounds over in-process simulated clients, on the
     device of ``rng`` (the server's key) and of the client data.
@@ -71,11 +111,18 @@ class Server:
     tasks stay sequential, as in the reference), "batched" (forced; an
     unstackable dataset raises) or "sequential".
 
-    ``rounds_per_dispatch`` / ``pipeline_blocks``: "auto" resolves to one
-    round per dispatch and no pipeline on both engines until fused rounds
-    are ported (ROADMAP.md, queue 1, item 9).  On the sequential engine a
-    forced value is kept and runs round by round, as in the reference; on
-    the batched engine a forced R > 1 raises.
+    ``rounds_per_dispatch``: how many rounds one dispatch runs.  1 is one
+    dispatch a round; R > 1 runs blocks of R rounds (``run_block``), one
+    CUDA graph replay each on the card, with one host copy per block.
+    "auto" resolves to 1 when the round engine is sequential (there is no
+    batched block to fuse) and to ``knobs.DEFAULT_ROUNDS_PER_DISPATCH``
+    (5) on the batched engine, as in the reference.
+
+    ``pipeline_blocks``: keep two blocks in flight (``run_pipelined``), so
+    the host finishes block k while the card runs block k+1.  "auto"
+    turns it on exactly when there is a fused batched block to overlap
+    (batched engine, ``rounds_per_dispatch > 1``); "on"/"off" force it
+    (on the sequential engine "on" degrades to the serial block loop).
     """
 
     def __init__(self, task: Task, strategy: Strategy, hp: ClientHP,
@@ -127,20 +174,27 @@ class Server:
                     if engine == "batched":
                         raise
         self.engine = "batched" if self._engine is not None else "sequential"
-        if self._engine is not None and rpd is not None and rpd > 1:
-            raise NotImplementedError(
-                f"rounds_per_dispatch={rpd} fuses rounds on the batched "
-                f"engine, which is not ported yet (ROADMAP.md, queue 1, "
-                f"item 9); pass 1 or 'auto'")
-        # no fused round program yet: "auto" is one round per dispatch and
-        # no pipeline on either engine; the sequential engine keeps a
-        # forced value and runs it round by round
-        self.rounds_per_dispatch = 1 if rpd is None else rpd
-        self.pipeline_blocks = bool(pipe) if pipe is not None else False
+        # auto: fuse only where there is a batched round to fuse (the CPU's
+        # conv policy has already resolved to sequential)
+        if rpd is None:
+            rpd = (DEFAULT_ROUNDS_PER_DISPATCH
+                   if self._engine is not None else 1)
+        self.rounds_per_dispatch = rpd
+        # auto: overlap exactly when there is a fused batched block to
+        # overlap; "on" without a batched engine degrades to the serial
+        # block loop inside run_pipelined
+        if pipe is None:
+            pipe = self._engine is not None and rpd > 1
+        self.pipeline_blocks = bool(pipe)
         self.rounds_completed = 0
         self._update = None
         if self._engine is None:
             self._update = make_update(task, hp, strategy.mh)
+        # finish_block copies a block's logs on a stream of its own, so the
+        # copy waits for that block and not for the one dispatched after it
+        self._fetch_stream = None
+        if self._engine is not None and self.device.type == "cuda":
+            self._fetch_stream = torch.cuda.Stream(self.device)
 
     # ------------------------------------------------------------ round --
     def run_round(self) -> dict:
@@ -150,6 +204,188 @@ class Server:
         if self._engine is not None:
             return self._run_round_batched(sel_key, ckeys)
         return self._run_round_sequential(sel_key, ckeys)
+
+    # ------------------------------------------------------------ block --
+    def run_block(self, n_rounds: Optional[int] = None, eval_data=None,
+                  eval_every: int = 1) -> List[dict]:
+        """Run ``n_rounds`` (default: ``rounds_per_dispatch``) rounds as ONE
+        fused block (engine="batched") and return one info dict per round,
+        in ``run_round``'s format plus ``eval_loss`` / ``eval_acc`` on the
+        rounds the ``eval_every`` cadence (and the block's last round)
+        evaluated on the device.
+
+        The block carries ``(global_params, rng)`` across rounds with the
+        server's key schedule derived on the device, so a block is
+        bit-identical to ``n_rounds`` ``run_round`` calls on the CPU,
+        including the CommMeter ledger, rebuilt per round by
+        ``CommMeter.record_rounds``.  The whole block costs one
+        device->host copy (the stacked round logs).
+
+        On the sequential engine this degrades to a loop of ``run_round``
+        and the cadenced ``evaluate``, with the same return shape.
+        """
+        n_rounds = int(n_rounds or self.rounds_per_dispatch)
+        if self._engine is None:
+            infos = []
+            for i in range(n_rounds):
+                info = self.run_round()
+                if eval_data is not None and eval_every > 0 and (
+                        self.rounds_completed % eval_every == 0
+                        or i == n_rounds - 1):
+                    loss, acc = self.evaluate(eval_data)
+                    info["eval_loss"], info["eval_acc"] = loss, acc
+                infos.append(info)
+            return infos
+        return self.finish_block(
+            self.dispatch_block(n_rounds, eval_data, eval_every))
+
+    # --------------------------------------------------------- pipeline --
+    def dispatch_block(self, n_rounds: Optional[int] = None, eval_data=None,
+                       eval_every: int = 1) -> PendingBlock:
+        """Dispatch one fused block WITHOUT fetching its logs.
+
+        On the card the block is enqueued (a graph replay and the copies
+        around it) and this returns at once; ``global_params``, ``rng``
+        and ``rounds_completed`` advance at once, which lets the *next*
+        ``dispatch_block`` enqueue before this block has run.  Pair with
+        :meth:`finish_block`, in dispatch order, to copy the logs, record
+        the meter, and build the info dicts.  Requires the batched engine.
+        """
+        if self._engine is None:
+            raise RuntimeError(
+                "dispatch_block requires the batched engine; the "
+                "sequential fallback has no async block dispatch to "
+                "pipeline — use run_block, which degrades gracefully")
+        n_rounds = int(n_rounds or self.rounds_per_dispatch)
+        t0 = time.perf_counter()
+        offset = self.rounds_completed
+        params, rng, logs = self._engine.run_block(
+            self.global_params, self.rng, n_rounds, eval_batch=eval_data,
+            eval_every=eval_every, round_offset=offset)
+        self.global_params, self.rng = params, rng
+        self.rounds_completed += n_rounds
+        ready = None
+        if self._fetch_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+        return PendingBlock(n_rounds=n_rounds, round_offset=offset,
+                            logs=logs, t_dispatched=t0,
+                            dispatch_s=time.perf_counter() - t0,
+                            ready=ready)
+
+    def finish_block(self, pending: PendingBlock) -> List[dict]:
+        """Finish a dispatched block: record its rounds on the meter, copy
+        the stacked logs to the host (the block's one device->host copy;
+        under the pipeline the next block runs meanwhile), rebuild the
+        per-round info dicts, and append a
+        :class:`~repro_torch.core.comm.BlockTiming` to the meter's block
+        ledger."""
+        n_rounds = pending.n_rounds
+        if self.strategy.is_fedx:
+            self.meter.record_rounds(self.strategy, n_rounds,
+                                     fetched_model=True)
+        else:
+            self.meter.record_rounds(
+                self.strategy, n_rounds,
+                n_participants=self._engine.n_participants)
+        names = sorted(pending.logs)
+        t0 = time.perf_counter()
+        # the block's single device->host copy
+        if pending.ready is None:
+            host = _fetch(*(pending.logs[k] for k in names))
+        else:
+            with torch.cuda.stream(self._fetch_stream):
+                self._fetch_stream.wait_event(pending.ready)
+                host = _fetch(*(pending.logs[k] for k in names))
+        t1 = time.perf_counter()
+        out = {k: h.reshape(pending.logs[k].shape)
+               for k, h in zip(names, host)}
+        infos = self._block_infos(out, n_rounds)
+        t2 = time.perf_counter()
+        self.meter.record_block_timing(BlockTiming(
+            n_rounds=n_rounds, dispatch_s=pending.dispatch_s,
+            sync_s=t1 - t0, process_s=t2 - t1,
+            total_s=t2 - pending.t_dispatched))
+        return infos
+
+    def _block_infos(self, out, n_rounds: int) -> List[dict]:
+        """``run_round``-shaped info dicts rebuilt on the host from a fused
+        block's fetched logs."""
+        infos = []
+        for r in range(n_rounds):
+            scores = out["scores"][r]
+            if self.strategy.is_fedx:
+                best = int(out["best"][r])
+                info = {"best_client": best, "score": float(scores[best]),
+                        "scores": [float(s) for s in scores],
+                        "engine": "fused"}
+            else:
+                # FedAvg scores align with the participants list
+                info = {"participants": [int(k)
+                                         for k in out["participants"][r]],
+                        "scores": [float(s) for s in scores],
+                        "engine": "fused"}
+            if "eval_loss" in out and not math.isnan(
+                    float(out["eval_loss"][r])):
+                info["eval_loss"] = float(out["eval_loss"][r])
+                info["eval_acc"] = float(out["eval_acc"][r])
+            infos.append(info)
+        return infos
+
+    def run_pipelined(self, rounds: int, eval_data=None,
+                      eval_every: int = 1,
+                      stop_fn: Optional[Callable[[dict], bool]] = None,
+                      block_rounds: Optional[int] = None,
+                      depth: int = DEFAULT_PIPELINE_DEPTH) -> PipelineResult:
+        """Run ``rounds`` rounds as double-buffered fused blocks.
+
+        Blocks of ``block_rounds`` (default ``rounds_per_dispatch``) rounds
+        go through :func:`repro_torch.core.engine.pipeline_blocks`: block
+        ``k+1`` is enqueued before block ``k``'s logs are fetched, so the
+        host's log copy, info rebuild, CommMeter recording and ``stop_fn``
+        checks of block ``k`` overlap block ``k+1``'s run on the card.
+        The result equals a serial ``run_block`` loop's: the pipeline
+        reorders host work, not device work.
+
+        ``stop_fn(info)`` is called once per finished round, in round
+        order; when it returns True no further block is dispatched, but
+        the block already in flight completes (its rounds run, its meter
+        entries land) — a worst-case overshoot of ``(depth - 1) *
+        block_rounds`` rounds.  See :class:`PipelineResult` for the trim
+        contract.  A trailing partial block (``rounds`` not a multiple of
+        the block size) is a second block shape; ``run_federated`` passes
+        a multiple and runs leftovers on the single-round path.
+
+        On the sequential engine this degrades to a serial ``run_block``
+        loop: same result shape, no overlap and no overshoot.
+        """
+        rounds = int(rounds)
+        block = int(block_rounds or self.rounds_per_dispatch)
+        sizes = [block] * (rounds // block)
+        if rounds % block:
+            sizes.append(rounds % block)
+        should_stop = None
+        if stop_fn is not None:
+            def should_stop(infos):
+                return any(stop_fn(i) for i in infos)
+        if self._engine is None:
+            infos, stopped = [], False
+            for n in sizes:
+                out = self.run_block(n, eval_data, eval_every)
+                infos.extend(out)
+                if should_stop is not None and should_stop(out):
+                    stopped = True
+                    break
+            return PipelineResult(infos=infos, kept=len(infos),
+                                  stopped=stopped)
+        results, kept_blocks, stopped = pipeline_blocks(
+            lambda n: self.dispatch_block(n, eval_data, eval_every),
+            self.finish_block, sizes, depth=depth,
+            should_stop=should_stop)
+        return PipelineResult(
+            infos=[i for blk in results for i in blk],
+            kept=sum(len(blk) for blk in results[:kept_blocks]),
+            stopped=stopped)
 
     def _run_round_batched(self, sel_key, ckeys) -> dict:
         if self.strategy.is_fedx:

@@ -10,7 +10,10 @@ The flags are the reference driver's, plus ``--bwo-kernel`` and
 ``--device``.  On the card ``--engine auto`` runs the batched engine (one
 vmapped program over the clients); on the CPU it keeps the conv task
 sequential, and ``--engine batched --vectorize vmap|scan`` batches it
-anyway.  ``--audit`` is not ported yet and raises.
+anyway.  ``--rounds-per-dispatch auto`` (5 on the batched engine) runs
+blocks of rounds, one CUDA graph replay each on the card, double-buffered
+by default (``--pipeline-blocks``).  ``--audit`` is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -49,22 +52,30 @@ def main():
                     help="Dirichlet concentration for --non-iid")
     ap.add_argument("--engine", default="auto", type=validate_engine,
                     metavar="auto|batched|sequential",
-                    help="round engine (auto: batched, except conv "
-                         "tasks on the CPU)")
+                    help="round engine: batched = one program over "
+                         "every client a round (repro_torch.core.engine); "
+                         "sequential = one client after another; auto "
+                         "picks batched when client data stacks "
+                         "(pad+mask for ragged), except conv tasks on "
+                         "the CPU")
     ap.add_argument("--vectorize", default="auto", type=validate_vectorize,
                     metavar="auto|vmap|scan[:k]|unroll",
                     help="client-axis traversal of the batched engine")
     ap.add_argument("--rounds-per-dispatch", default="1",
                     type=validate_rounds_per_dispatch, metavar="auto|R",
-                    help="rounds per dispatch; fused rounds are not "
-                         "ported yet, so the batched engine takes 1 or "
-                         "auto (= 1)")
+                    help="fuse R rounds into one dispatch with one host "
+                         "copy per block, one CUDA graph replay on the "
+                         "card (batched engine only; auto = 5)")
     ap.add_argument("--pipeline-blocks", nargs="?", const="on",
                     default="auto", type=validate_pipeline_blocks,
                     metavar="auto|on|off",
-                    help="double-buffered blocks (batched engine only)")
+                    help="double-buffer fused block dispatches against "
+                         "host-side log processing; bare flag = on, "
+                         "default auto pipelines whenever "
+                         "rounds-per-dispatch > 1 on the batched engine")
     ap.add_argument("--eval-every", type=int, default=1, metavar="K",
-                    help="evaluate the global model every K-th round")
+                    help="evaluate the global model every K-th round; "
+                         "fused blocks run the cadence on the device")
     ap.add_argument("--audit", nargs="?", const="strict", default="off",
                     type=validate_audit, metavar="|".join(AUDIT_MODES),
                     help="static auditor (not ported yet: anything but "
@@ -94,6 +105,8 @@ def main():
     print(f"strategy={cfg.strategy} clients={cfg.n_clients} "
           f"partition={cfg.partition} engine={exp.server.engine} "
           f"device={exp.server.device} bwo_kernel={cfg.bwo_kernel} "
+          f"rounds_per_dispatch={exp.server.rounds_per_dispatch} "
+          f"pipeline_blocks={exp.server.pipeline_blocks} "
           f"model_bytes={exp.meter.model_bytes:,}")
     result = exp.run(verbose=True)
 

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.metaheuristics.base import (Metaheuristic, init_population,
-                                             keep_incumbent)
+                                             keep_incumbent, take)
 
 
 def avo(max_iter: int = 20, step_scale: float = 0.1,
@@ -31,7 +31,7 @@ def avo(max_iter: int = 20, step_scale: float = 0.1,
             * (1.0 - t / max_iter)
         order = torch.argsort(fit, stable=True)
         # one member leads twice, as the reference's clamped indexing does
-        best1, best2 = pop[order[0]], pop[order[min(1, P - 1)]]
+        best1, best2 = take(pop, order[0]), take(pop, order[min(1, P - 1)])
 
         k1, k2, k3, k4, k5 = random.split(key, 5)
         pick1 = random.bernoulli(k1, p1, (P, 1))

@@ -28,15 +28,23 @@ def init_population(key, x0: torch.Tensor, pop: int, fit_fn: FitFn,
     """Seed a population around x0 (member 0 is x0 itself)."""
     noise = random.normal(key, (pop, x0.shape[0]), x0.dtype) * spread
     noise = noise * (torch.abs(x0)[None, :] + 1e-3)
-    noise[0] = 0.0
+    noise[0].zero_()
     population = x0[None, :] + noise
     return {"pop": population, "fit": fit_fn(population),
             "t": torch.zeros((), dtype=torch.int32, device=x0.device)}
 
 
+def take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-dim index tensor, as a gather on the device.
+    Indexing with a 0-dim tensor reads it on the host (a sync), which a
+    CUDA graph capture refuses; under vmap, with ``i`` batched, both are
+    the same gather."""
+    return a.index_select(0, i.reshape(1))[0]
+
+
 def best_member(state: State):
     i = torch.argmin(state["fit"])
-    return state["pop"][i], state["fit"][i]
+    return take(state["pop"], i), take(state["fit"], i)
 
 
 def select_best(pop, fit, n):
@@ -51,5 +59,5 @@ def keep_incumbent(pop, fit, new_pop, new_fit):
     worst = torch.argmax(new_fit)
     best = torch.argmin(fit)
     at = torch.arange(new_fit.shape[0], device=new_fit.device) == worst
-    return (torch.where(at[:, None], pop[best][None], new_pop),
-            torch.where(at, fit[best], new_fit))
+    return (torch.where(at[:, None], take(pop, best)[None], new_pop),
+            torch.where(at, take(fit, best), new_fit))

@@ -5,7 +5,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.metaheuristics.base import (Metaheuristic, init_population,
-                                             keep_incumbent)
+                                             keep_incumbent, take)
 
 
 def gwo(max_iter: int = 20, step_scale: float = 0.1) -> Metaheuristic:
@@ -23,7 +23,8 @@ def gwo(max_iter: int = 20, step_scale: float = 0.1) -> Metaheuristic:
         order = torch.argsort(fit, stable=True)
         # a population under 3 repeats its last member, as the
         # reference's clamped indexing does
-        alpha, beta, delta = (pop[order[min(i, P - 1)]] for i in range(3))
+        alpha, beta, delta = (take(pop, order[min(i, P - 1)])
+                              for i in range(3))
 
         def hunt(k, leader):
             k1, k2 = random.split(k)

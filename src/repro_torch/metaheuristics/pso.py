@@ -4,7 +4,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random
-from repro_torch.metaheuristics.base import Metaheuristic, init_population
+from repro_torch.metaheuristics.base import (Metaheuristic, init_population,
+                                             take)
 
 
 def pso(w: float = 0.7, c1: float = 1.4, c2: float = 1.4,
@@ -16,7 +17,7 @@ def pso(w: float = 0.7, c1: float = 1.4, c2: float = 1.4,
         s.update({
             "vel": torch.zeros_like(s["pop"]),
             "pbest": s["pop"], "pbest_fit": s["fit"],
-            "gbest": s["pop"][gi], "gbest_fit": s["fit"][gi],
+            "gbest": take(s["pop"], gi), "gbest_fit": take(s["fit"], gi),
         })
         return s
 
@@ -37,7 +38,7 @@ def pso(w: float = 0.7, c1: float = 1.4, c2: float = 1.4,
         pbest_fit = torch.where(better, fit, state["pbest_fit"])
         gi = torch.argmin(pbest_fit)
         return {"pop": pop, "fit": fit, "vel": vel, "pbest": pbest,
-                "pbest_fit": pbest_fit, "gbest": pbest[gi],
-                "gbest_fit": pbest_fit[gi], "t": state["t"] + 1}
+                "pbest_fit": pbest_fit, "gbest": take(pbest, gi),
+                "gbest_fit": take(pbest_fit, gi), "t": state["t"] + 1}
 
     return Metaheuristic("pso", init, step)

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch import random
 from repro_torch.metaheuristics.base import (Metaheuristic, init_population,
-                                             keep_incumbent)
+                                             keep_incumbent, take)
 
 
 def sca(a: float = 2.0, max_iter: int = 20,
@@ -21,7 +21,7 @@ def sca(a: float = 2.0, max_iter: int = 20,
         P, D = pop.shape
         t = state["t"].to(torch.float32)
         r1 = a * torch.clamp_min(1.0 - t / max_iter, 0.0)
-        best = pop[torch.argmin(fit)]
+        best = take(pop, torch.argmin(fit))
         k2, k3, k4 = random.split(key, 3)
         r2 = random.uniform(k2, (P, D), pop.dtype) * 2 * math.pi
         r3 = random.uniform(k3, (P, D), pop.dtype) * 2

@@ -116,8 +116,10 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     # exactly; computed so, not by a bit cast, since older torch has no
     # vmap rule for a dtype view
     f = (b >> 9).to(torch.float32) * (1.0 / (1 << 23))
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    # filled on the device: a tensor built from a host scalar is a copy
+    # from pageable memory and a sync, which a CUDA graph capture refuses
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the
     # float64 product of two float32 values is exact, so this rounds as
     # the FMA does (barring a double-rounding tie)
@@ -127,8 +129,8 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
     """``jax.random.bernoulli`` (mode "low"): ``uniform < p`` in float32."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
-                                              device=key.device)
+    return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
+                                            device=key.device)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int,
@@ -169,15 +171,18 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * math.inf, p * x)
 
 
+# the float32 next after -1 towards 0: the low end of normal's uniform
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+
+
 def normal(key: torch.Tensor, shape: Shape = (),
            dtype=torch.float32) -> torch.Tensor:
     """``jax.random.normal``: sqrt(2) * erfinv(u) with u uniform on
     (nextafter(-1, 0), 1).  ``torch.log1p`` and XLA's differ in the last
     bit, so a draw agrees with JAX's within 1e-6, not exactly."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, dtype, lo, 1.0)
-    return _erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=dtype,
-                                     device=key.device)
+    u = uniform(key, shape, dtype, _NORMAL_LO, 1.0)
+    return _erfinv(u) * torch.full((), math.sqrt(2.0), dtype=dtype,
+                                   device=key.device)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

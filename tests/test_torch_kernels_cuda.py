@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import random as R  # noqa: E402
+from repro_torch import random as R, tree  # noqa: E402
 from repro_torch.kernels.bwo_evolve import bwo_evolve as kernel_mod  # noqa: E402
 from repro_torch.kernels.bwo_evolve import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -396,3 +396,128 @@ def test_ssm_scan_kernel_is_deterministic(B, S, D, N, with_h0):
     y2, h2 = ssm_ops.ssm_scan(*args)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# ------------------------------------------ fused blocks as CUDA graphs --
+# the narrow paper CNN on the card, 3 clients, pop 3, 2 generations, 1
+# local epoch: each round launches bwo_evolve twice (once a generation for
+# every client)
+FL_SMALL = dict(n_clients=3, n_train=90, n_test=30, mh_pop=3,
+                mh_generations=2, local_epochs=1, bwo_kernel=True,
+                device="cuda", tau=1.01)
+
+
+def _fl_server(rounds_per_dispatch, pipeline="auto", task=None):
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.data.synthetic import cnn_task
+    task = task or cnn_task(CNNConfig(conv1_filters=4, conv2_filters=8,
+                                      dense_hidden=16))
+    exp = build_experiment(FLConfig(rounds_per_dispatch=rounds_per_dispatch,
+                                    pipeline_blocks=pipeline, **FL_SMALL),
+                           task=task)
+    assert exp.server.engine == "batched"
+    return exp.server, exp.eval_data
+
+
+def _assert_rounds_close(got, want):
+    """The same winners, scores within 1e-4 relative: phase 6 of
+    chip_smoke.py's bound at narrow width (cuDNN's grouped weight gradient
+    sums with atomics, so two runs of one program may differ in the last
+    bits)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g["best_client"] == w["best_client"]
+        torch.testing.assert_close(torch.tensor(g["scores"]),
+                                   torch.tensor(w["scores"]), rtol=1e-4,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_graphed_block_matches_eager_rounds_and_counts_replays():
+    """A block of 3 rounds, one replay of its captured graph, against 3
+    eager ``run_round`` calls from the same start; the launch counter
+    counts each replay's launches (and the warm-up round's), and the
+    graph holds none of its own beyond that."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    eager, _ = _fl_server(1)
+    fused, teval = _fl_server(3)
+    want = [eager.run_round() for _ in range(3)]
+    before = kernel_mod.launches
+    got = fused.run_block(3, eval_data=teval, eval_every=1)
+    torch.cuda.synchronize()
+    engine = fused._engine
+    (graph,) = engine.graphs.values()
+    per_round = FL_SMALL["mh_generations"]
+    assert graph.launches == 3 * per_round and graph.replays == 1
+    assert engine.warmup_launches == per_round
+    assert kernel_mod.launches - before == 3 * per_round + per_round
+    _assert_rounds_close(got, want)
+    assert all("eval_loss" in i for i in got)
+    for a, b in zip(tree.leaves(eager.global_params),
+                    tree.leaves(fused.global_params)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert fused.meter.summary() == eager.meter.summary()
+
+
+@pytest.mark.cuda
+def test_each_block_shape_is_captured_once():
+    """Four blocks of one shape and eval cadence 1: one capture, four
+    replays, one warm-up; a block of another length is a second graph
+    with no second warm-up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    server, teval = _fl_server(2)
+    for _ in range(4):
+        server.run_block(2, eval_data=teval, eval_every=1)
+    engine = server._engine
+    assert [g.replays for g in engine.graphs.values()] == [4]
+    server.run_block(1, eval_data=teval, eval_every=1)
+    assert sorted(g.replays for g in engine.graphs.values()) == [1, 4]
+    assert engine.warmup_launches == FL_SMALL["mh_generations"]
+    assert server.rounds_completed == 9
+
+
+@pytest.mark.cuda
+def test_block_logs_survive_the_next_replay():
+    """Block k+1 is dispatched before block k is finished (the pipeline's
+    order); block k's infos must still be block k's, as a serial twin
+    shows, and not the values the next replay wrote into the graph's
+    static outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    serial, teval = _fl_server(2)
+    piped, _ = _fl_server(2)
+    want = [serial.run_block(2, eval_data=teval, eval_every=1)
+            for _ in range(2)]
+    pending = [piped.dispatch_block(2, teval, 1) for _ in range(2)]
+    got = [piped.finish_block(p) for p in pending]
+    for g, w in zip(got, want):
+        _assert_rounds_close(g, w)
+    assert got[0][0]["scores"] != got[1][0]["scores"]
+    res = piped.run_pipelined(4, eval_data=teval, eval_every=1)
+    assert res.kept == 4 and piped.meter.timing_summary()["blocks"] == 4
+
+
+@pytest.mark.cuda
+def test_a_capture_that_syncs_raises():
+    """A loss that builds a tensor from a host scalar (a copy from
+    pageable memory, then a sync) cannot be captured: the block raises on
+    the card, and nothing runs it eagerly instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph has no CPU mode")
+    from repro_torch.configs.paper_cnn import CNNConfig
+    from repro_torch.data.synthetic import cnn_task
+    base = cnn_task(CNNConfig(conv1_filters=4, conv2_filters=8,
+                              dense_hidden=16))
+
+    def loss_fn(params, batch):
+        loss, acc = base.loss_fn(params, batch)
+        return loss + torch.tensor(0.0, device=loss.device), acc
+
+    server, teval = _fl_server(2, task=base._replace(loss_fn=loss_fn))
+    server.run_round()                      # eager: the copy is allowed
+    with pytest.raises(RuntimeError):
+        server.run_block(2, eval_data=teval, eval_every=1)
+    assert server._engine.graphs == {}

@@ -87,16 +87,15 @@ def test_device_cuda_without_a_card_raises():
 
 
 def test_not_yet_ported_options_raise():
-    """The auditor and fused rounds on the batched engine raise; the
-    batched engine and every FedX strategy are ported, and an unknown
-    strategy is refused."""
+    """The auditor raises; the batched engine, fused rounds on it and
+    every FedX strategy are ported, and an unknown strategy is refused."""
     cfg = api.FLConfig(device="cpu", n_clients=2, n_train=20, n_test=10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build_experiment(cfg, audit="report")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_experiment(api.FLConfig(
-            device="cpu", engine="batched", rounds_per_dispatch=5,
-            n_clients=2, n_train=20, n_test=10))
+    fused = api.build_experiment(api.FLConfig(
+        device="cpu", engine="batched", rounds_per_dispatch=5,
+        n_clients=2, n_train=20, n_test=10)).server
+    assert (fused.engine, fused.rounds_per_dispatch) == ("batched", 5)
     exp = api.build_experiment(api.FLConfig(
         device="cpu", engine="batched", strategy="fedpso", n_clients=2,
         n_train=20, n_test=10))
@@ -124,24 +123,25 @@ def test_sequential_engine_resolves_knobs_as_the_reference(rpd, pipe, want):
 
 
 @pytest.mark.parametrize("rpd,pipe,want", [(1, "auto", (1, False)),
-                                           ("auto", "auto", (1, False)),
-                                           (5, "auto", None),
-                                           (2, "on", None)])
+                                           ("auto", "auto", (5, True)),
+                                           (5, "auto", (5, True)),
+                                           (2, "on", (2, True)),
+                                           (3, "off", (3, False))])
 def test_batched_engine_resolves_knobs_until_fused_rounds_land(rpd, pipe,
                                                                want):
-    """On the batched engine "auto" is one round per dispatch and no
-    pipeline (the reference's is 5 rounds, pipelined: fused rounds are
-    not ported yet), and a forced R > 1 raises."""
+    """Fused rounds have landed: on the batched engine "auto" is 5 rounds
+    a dispatch, pipelined, and a forced R > 1 runs, as in the
+    reference."""
     cfg = api.FLConfig(device="cpu", task="mlp", n_clients=2, n_train=20,
                        n_test=10, rounds_per_dispatch=rpd,
                        pipeline_blocks=pipe)
-    if want is None:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            api.build_experiment(cfg)
-        return
     server = api.build_experiment(cfg).server
-    assert server.engine == "batched"
-    assert (server.rounds_per_dispatch, server.pipeline_blocks) == want
+    jserver = japi.build_experiment(japi.FLConfig(
+        task="mlp", n_clients=2, n_train=20, n_test=10,
+        rounds_per_dispatch=rpd, pipeline_blocks=pipe)).server
+    assert server.engine == jserver.engine == "batched"
+    got = (server.rounds_per_dispatch, server.pipeline_blocks)
+    assert got == (jserver.rounds_per_dispatch, jserver.pipeline_blocks) == want
 
 
 def test_fl_train_cli(monkeypatch, capsys):
@@ -154,5 +154,6 @@ def test_fl_train_cli(monkeypatch, capsys):
     out = capsys.readouterr().out
     # a dense task batches on the CPU, as the reference's CLI does
     assert "engine=batched device=cpu bwo_kernel=True" in out
+    assert "rounds_per_dispatch=1 pipeline_blocks=False" in out
     assert '"engine": "batched"' in out
     assert '"uplink_bytes"' in out and '"rounds": 1' in out

@@ -22,7 +22,8 @@ def _run(argv, cwd):
     ["chip_smoke.py"], ["tools/ssm_scan_ablation.py"], ["tools/run_phase.py"],
     ["tools/run_phase.py", "10"], ["tools/run_phase.py", "7"],
     ["tools/run_phase.py", "3"], ["tools/run_phase.py", "seq"],
-    ["tools/run_phase.py", "3b"], ["tools/conv_wgrad_layouts.py"]])
+    ["tools/run_phase.py", "3b"], ["tools/run_phase.py", "4c"],
+    ["tools/conv_wgrad_layouts.py"]])
 def test_tools_fail_without_a_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

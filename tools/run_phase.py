@@ -7,6 +7,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 7 [TREE]       # flash_attention (phase 7)
     python3 tools/run_phase.py seq [TREE]     # sequential FL rounds
     python3 tools/run_phase.py 3b             # gradient against float64
+    python3 tools/run_phase.py 4c [TREE]      # fused rounds, CUDA graphs
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -19,7 +20,12 @@ through ``build_experiment`` for 4 rounds (the first warms up) and times
 one client's local SGD (2 epochs of 10 steps), so a tree from before the
 batched engine can be compared.  ``3b`` runs this tree's phase 3b under
 cuDNN's settings in turn (as set, ``benchmark``, ``deterministic``,
-disabled) and with TF32 allowed, which its limit must refuse.
+disabled) and with TF32 allowed, which its limit must refuse.  ``4c``
+runs the tree's phase 4c: 10 full-width FedBWO rounds as two pipelined
+blocks of 5, each one CUDA graph replay, against 5 eager rounds from the
+same start, with the capture time, the amortized round, the peak memory,
+both drivers' sync fractions and the card's busy share (trees from this
+one on).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from pathlib import Path
 
 def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("7", "10", "seq", "3b"):
+    if phase not in ("7", "10", "seq", "3b", "4c"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -49,6 +55,12 @@ def main() -> int:
         _, times = cs.flash_phase(torch, mem, bf16)
     elif phase == "seq":
         times = sequential_rounds(torch)
+    elif phase == "4c":
+        from repro_torch.kernels.bwo_evolve import bwo_evolve
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.ssm_scan import ssm_scan
+        times = cs.fused_phase(torch, (bwo_evolve, flash_attention,
+                                       ssm_scan))
     else:
         times = grad_variants(torch, cs)
     print(json.dumps({"tree": str(tree), "phase": phase, "ms": times}))
