@@ -88,10 +88,25 @@ Phases, each printing its own lines; any failure exits non-zero:
     which take the CUDA-core route): olmo-1b ``.reduced()`` with bfloat16
     weights served greedily through the kernels and again with
     ``flash_attention_ref`` in the kernels' place, and full-width OLMo-1B's
-    prefill logits both ways.
+    prefill logits both ways;
+14. Jamba-v0.1 with its 16 experts at full width, depth cut to one
+    8-layer period: ``serve(dataclasses.replace(get_arch("jamba-v0.1-52b"),
+    num_layers=8), batch=4, prompt_len=1024, gen=32, temperature=1.0,
+    device="cuda")`` with every launch counter set to 0 just before and read
+    just after (``ssm_scan`` 224; flash 32: 1 tensor-core, 31 split-K),
+    the parameter tree counted (13,295,235,072), then a prefill alone and
+    one decode step with the MoE layers' share, one ``moe_apply`` timed at
+    both shapes beside its bound;
+15. DeepSeek-V2 at full width, 2 layers, the same call (MLA attends in
+    plain PyTorch, as the reference does: no kernel launches), its tree
+    (8,992,814,080) and latent cache checked, the same split;
+16. serving the reduced MoE configurations (Jamba with experts,
+    DeepSeek-V2, Arctic) on the card against the port's CPU route, greedy.
 
-It then prints one JSON line describing every ported kernel, and as the
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+It then prints one JSON line describing every ported kernel (``launches``
+summed over the serving paths that run it, flash's per path in
+``route_launches``), and as the last line ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it fails and prints no
 result.
 """
@@ -386,19 +401,22 @@ def check_routes(got, want, where):
           f"expected {want}")
 
 
-def serve_phase(torch, counters, decode_kernel_ms):
-    """Phase 8.  Returns flash_attention's launches on the serving path and
-    their count by route."""
-    from repro_torch import random
+def tree_size(tree, params):
+    """(parameters, bytes) of a parameter tree, counted from its leaves."""
+    leaves = tree.leaves(params)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def serve_checked(torch, counters, cfg, want_launches, want_routes, where):
+    """One full-width ``serve()`` (batch 4, prompt 1024, 32 tokens,
+    temperature 1) with every launch counter set to 0 just before and read
+    just after: the launches and routes checked, the tokens in range and
+    the logits finite.  Returns the launches and flash's routes."""
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
-    from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models.transformer import build_model
-    print("== 8. serving OLMo-1B at full width and depth")
-    cfg = get_arch("olmo-1b")
-    check(cfg.num_params() == 1_176_764_416, f"olmo-1b has {cfg.num_params()}")
     B, P, G = 4, 1024, 32
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
@@ -406,22 +424,16 @@ def serve_phase(torch, counters, decode_kernel_ms):
     launches = read_counts(counters)
     routes = dict(fa_kernel.route_launches)
     peak = torch.cuda.max_memory_allocated()
-    want = cfg.num_layers * (1 + (G - 1))
-    print(f"  {cfg.num_params():,} parameters, {cfg.param_dtype}; launches "
-          f"{launches} (expected flash_attention {want})")
+    print(f"  {cfg.num_layers} layers {cfg.block_pattern}, d {cfg.d_model}, "
+          f"{cfg.param_dtype}; launches {launches} (expected {want_launches})")
     print(f"  init_s {res.init_s:.3f}  prefill_ms {res.prefill_ms:.3f}  "
           f"decode_ms_per_step {res.decode_ms_per_step:.3f}  tokens_per_s "
           f"{res.tokens_per_s:.1f}  max_memory_allocated "
           f"{peak / 2**30:.2f} GiB")
     print(f"  sample: {res.tokens[0, :16].tolist()}")
-    check(launches["flash_attention"] == want,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"expected {want}")
-    check(launches["bwo_evolve"] == 0 and launches["ssm_scan"] == 0,
-          "the dense serving path ran bwo_evolve or ssm_scan")
-    check_routes(routes, {"tensor_core": cfg.num_layers,
-                          "split_k": cfg.num_layers * (G - 1),
-                          "cuda_core": 0}, "the OLMo-1B serving path")
+    check(launches == want_launches, f"launches on {where}: {launches}, "
+          f"expected {want_launches}")
+    check_routes(routes, want_routes, where)
     toks = res.tokens
     check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -429,21 +441,18 @@ def serve_phase(torch, counters, decode_kernel_ms):
     check(res.logits.shape == (B, cfg.vocab_size)
           and bool(torch.isfinite(res.logits).all()), "non-finite logits")
     del res
-    # the same serve() again in this process: its times without the first
-    # call's set-up (library load, cuBLAS handles, allocator growth)
-    warm = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
-                 device="cuda")
-    print(f"  again (warm): init_s {warm.init_s:.3f}  prefill_ms "
-          f"{warm.prefill_ms:.3f}  decode_ms_per_step "
-          f"{warm.decode_ms_per_step:.3f}  tokens_per_s {warm.tokens_per_s:.1f}")
-    del warm
+    torch.cuda.empty_cache()
+    return launches, routes
 
-    # one decode step at the last position, split into the model and the
-    # sampling, and a prefill alone (weights drawn again)
+
+def step_split(torch, model, params, B, P, G):
+    """A prefill alone, one decode step of the model at the last position
+    and its sampling (key split + categorical), in ms; and the cache."""
+    from repro_torch import random
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     dev = torch.device("cuda")
-    model = build_model(cfg, max_seq=P + G)
-    params = model.init(random.PRNGKey(0, dev))
-    prompts = random.randint(random.PRNGKey(1, dev), (B, P), 0, cfg.vocab_size)
+    prompts = random.randint(random.PRNGKey(1, dev), (B, P), 0,
+                             model.cfg.vocab_size)
     prefill = make_prefill_step(model, P + G)
     prefill_ms = time_ms(torch, lambda: prefill(params, {"tokens": prompts}),
                          reps=3, warmup=1)
@@ -458,16 +467,70 @@ def serve_phase(torch, counters, decode_kernel_ms):
         _, k = random.split(key)
         return random.categorical(k, logits)
 
-    sample_ms = time_ms(torch, sample, reps=10)
+    return prefill_ms, model_ms, time_ms(torch, sample, reps=10), cache
+
+
+def serve_phase(torch, counters, decode_kernel_ms):
+    """Phase 8.  Returns flash_attention's launches on the serving path and
+    their count by route."""
+    from repro_torch import random
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import build_model
+    print("== 8. serving OLMo-1B at full width and depth")
+    cfg = get_arch("olmo-1b")
+    check(cfg.num_params() == 1_176_764_416, f"olmo-1b has {cfg.num_params()}")
+    B, P, G = 4, 1024, 32
+    want = cfg.num_layers * (1 + (G - 1))
+    print(f"  {cfg.num_params():,} parameters")
+    launches, routes = serve_checked(
+        torch, counters, cfg,
+        {"bwo_evolve": 0, "flash_attention": want, "ssm_scan": 0},
+        {"tensor_core": cfg.num_layers, "split_k": cfg.num_layers * (G - 1),
+         "cuda_core": 0}, "the OLMo-1B serving path")
+    # the same serve() again in this process: its times without the first
+    # call's set-up (library load, cuBLAS handles, allocator growth)
+    warm = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
+                 device="cuda")
+    print(f"  again (warm): init_s {warm.init_s:.3f}  prefill_ms "
+          f"{warm.prefill_ms:.3f}  decode_ms_per_step "
+          f"{warm.decode_ms_per_step:.3f}  tokens_per_s {warm.tokens_per_s:.1f}")
+    del warm
+
+    # one decode step at the last position, split into the model and the
+    # sampling, and a prefill alone (weights drawn again)
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, torch.device("cuda")))
+    prefill_ms, model_ms, sample_ms, cache = step_split(torch, model, params,
+                                                        B, P, G)
     attn_ms = cfg.num_layers * decode_kernel_ms
     print(f"  prefill alone {prefill_ms:.3f} ms; one decode step: model "
           f"{model_ms:.3f} ms (of which the attention kernel, {cfg.num_layers} x "
           f"{decode_kernel_ms:.4f} ms cold = {attn_ms:.3f} ms, "
           f"{attn_ms / model_ms:.1%}), sampling (key split + categorical "
           f"over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
-    del params, cache, logits
+    del params, cache
     torch.cuda.empty_cache()
     return launches["flash_attention"], routes
+
+
+def card_vs_cpu(torch, what, cfg, on_differ=None, **kw):
+    """Serves ``cfg`` greedily on the card and on the port's CPU route:
+    the tokens must be equal and the last logits within 1e-2 (phase 9's
+    bound).  ``on_differ(card, cpu)`` runs before a token difference fails
+    the check."""
+    from repro_torch.launch.serve import serve
+    kw = dict(dict(batch=2, prompt_len=16, gen=8, temperature=0.0), **kw)
+    on_card, on_cpu = serve(cfg, device="cuda", **kw), serve(cfg, device="cpu", **kw)
+    same = bool((on_card.tokens.cpu() == on_cpu.tokens).all())
+    diff = (on_card.logits.cpu() - on_cpu.logits).abs().max().item()
+    print(f"  {what}: tokens {'equal' if same else 'DIFFER'}, last logits max "
+          f"diff {diff:.2e} (tol 1e-2, |logits| up to "
+          f"{on_cpu.logits.abs().max().item():.2f})")
+    if not same and on_differ is not None:
+        on_differ(on_card, on_cpu)
+    check(same, f"{what}: card and CPU routes served different tokens")
+    check(diff <= 1e-2, f"{what}: card and CPU logits disagree beyond 1e-2")
 
 
 def serve_card_vs_cpu(torch):
@@ -476,19 +539,10 @@ def serve_card_vs_cpu(torch):
     read through the bf16 cache, where an element that rounds the other
     way moves a logit by up to ~1e-2: tolerance 1e-2."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve
     print("== 9. serving olmo-1b reduced on the card against the CPU route")
-    cfg = get_arch("olmo-1b").reduced()
     for window in (None, 6):
-        kw = dict(batch=2, prompt_len=16, gen=8, temperature=0.0, window=window)
-        on_card, on_cpu = serve(cfg, device="cuda", **kw), serve(cfg, device="cpu", **kw)
-        same = bool((on_card.tokens.cpu() == on_cpu.tokens).all())
-        diff = (on_card.logits.cpu() - on_cpu.logits).abs().max().item()
-        print(f"  window {window}: tokens {'equal' if same else 'DIFFER'}, "
-              f"last logits max diff {diff:.2e} (tol 1e-2, |logits| up to "
-              f"{on_cpu.logits.abs().max().item():.1f})")
-        check(same, "card and CPU routes served different tokens")
-        check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
+        card_vs_cpu(torch, f"window {window}", get_arch("olmo-1b").reduced(),
+                    window=window)
 
 
 def ssm_inputs(torch, shape, gen, mamba_A):
@@ -587,81 +641,34 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
     """Phase 11.  Returns ssm_scan's launches on the hybrid serving path and
     flash_attention's count by route."""
     from repro_torch import random, tree
-    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.transformer import build_model
     print("== 11. serving Jamba without experts at full width and depth")
     cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None)
     B, P, G = 4, 1024, 32
     n_mamba = cfg.block_pattern.count("mamba") * cfg.num_groups
     n_attn = cfg.num_layers - n_mamba
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(counters)
-    res = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
-                device="cuda")
-    launches = read_counts(counters)
-    routes = dict(fa_kernel.route_launches)
-    peak = torch.cuda.max_memory_allocated()
-    want_ssm, want_fa = n_mamba * G, n_attn * G
-    print(f"  {cfg.num_layers} layers ({n_mamba} mamba, {n_attn} attn), d "
-          f"{cfg.d_model}, {cfg.param_dtype}; launches {launches} (expected "
-          f"ssm_scan {want_ssm}, flash_attention {want_fa})")
-    print(f"  init_s {res.init_s:.3f}  prefill_ms {res.prefill_ms:.3f}  "
-          f"decode_ms_per_step {res.decode_ms_per_step:.3f}  tokens_per_s "
-          f"{res.tokens_per_s:.1f}  max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB")
-    print(f"  sample: {res.tokens[0, :16].tolist()}")
-    check(launches["ssm_scan"] == want_ssm,
-          f"ssm_scan launched {launches['ssm_scan']} times, expected {want_ssm}")
-    check(launches["flash_attention"] == want_fa,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"expected {want_fa}")
-    check(launches["bwo_evolve"] == 0, "the serving path ran bwo_evolve")
-    check_routes(routes, {"tensor_core": n_attn, "split_k": n_attn * (G - 1),
-                          "cuda_core": 0}, "the Jamba serving path")
-    toks = res.tokens
-    check(toks.shape == (B, G) and toks.is_cuda and toks.dtype == torch.int32
-          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          f"tokens out of range or misshapen: {tuple(toks.shape)}")
-    check(res.logits.shape == (B, cfg.vocab_size)
-          and bool(torch.isfinite(res.logits).all()), "non-finite logits")
-    del res
-    torch.cuda.empty_cache()
+    launches, routes = serve_checked(
+        torch, counters, cfg,
+        {"bwo_evolve": 0, "flash_attention": n_attn * G,
+         "ssm_scan": n_mamba * G},
+        {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
+        "the Jamba serving path")
 
     # one drawing of the weights (serve()'s, seed 0) for the count, a
     # prefill alone and one decode step split into the model and sampling
-    dev = torch.device("cuda")
     model = build_model(cfg, max_seq=P + G)
-    params = model.init(random.PRNGKey(0, dev))
-    leaves = tree.leaves(params)
-    n_params = sum(t.numel() for t in leaves)
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    params = model.init(random.PRNGKey(0, torch.device("cuda")))
+    n_params, n_bytes = tree_size(tree, params)
     print(f"  parameter tree: {n_params:,} parameters, {n_bytes:,} bytes "
           f"(ArchConfig.num_params() reports {cfg.num_params():,}: it counts "
           f"no FFN on a mamba layer)")
     check(n_params == 9_290_682_368 and n_bytes == 18_589_163_520,
           f"the tree holds {n_params} parameters in {n_bytes} bytes")
-    prompts = random.randint(random.PRNGKey(1, dev), (B, P), 0, cfg.vocab_size)
-    prefill = make_prefill_step(model, P + G)
-    prefill_ms = time_ms(torch, lambda: prefill(params, {"tokens": prompts}),
-                         reps=3, warmup=1)
-    logits, cache = prefill(params, {"tokens": prompts})
+    prefill_ms, model_ms, sample_ms, cache = step_split(torch, model, params,
+                                                        B, P, G)
     state_mb = sum(t.numel() * t.element_size()
                    for t in tree.leaves(cache)) / 1e6
-    step = make_serve_step(model)
-    tok = logits.argmax(-1)[:, None].to(torch.int32)
-    model_ms = time_ms(torch, lambda: step(params, tok, cache, P + G - 2),
-                       reps=10)
-    key = random.PRNGKey(1, dev)
-
-    def sample():
-        _, k = random.split(key)
-        return random.categorical(k, logits)
-
-    sample_ms = time_ms(torch, sample, reps=10)
 
     def kernels_share(part, total_ms):
         scan = n_mamba * ssm_times[part]
@@ -677,7 +684,7 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
     print(f"  one decode step: model {model_ms:.3f} ms (of which "
           f"{kernels_share('decode', model_ms)}), sampling (key split + "
           f"categorical over {B} x {cfg.vocab_size}) {sample_ms:.3f} ms")
-    del params, cache, logits
+    del params, cache
     torch.cuda.empty_cache()
     return launches["ssm_scan"], routes
 
@@ -687,19 +694,10 @@ def jamba_card_vs_cpu(torch):
     weights, bf16 KV cache, float32 mamba state), on the card against the
     CPU route.  Tolerance 1e-2 on the last logits, as phase 9's."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve
     print("== 12. serving Jamba without experts, reduced, on the card "
           "against the CPU route")
-    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None).reduced()
-    kw = dict(batch=2, prompt_len=16, gen=8, temperature=0.0)
-    on_card, on_cpu = serve(cfg, device="cuda", **kw), serve(cfg, device="cpu", **kw)
-    same = bool((on_card.tokens.cpu() == on_cpu.tokens).all())
-    diff = (on_card.logits.cpu() - on_cpu.logits).abs().max().item()
-    print(f"  tokens {'equal' if same else 'DIFFER'}, last logits max diff "
-          f"{diff:.2e} (tol 1e-2, |logits| up to "
-          f"{on_cpu.logits.abs().max().item():.1f})")
-    check(same, "card and CPU routes served different tokens")
-    check(diff <= 1e-2, "card and CPU logits disagree beyond 1e-2")
+    card_vs_cpu(torch, "jamba without experts", dataclasses.replace(
+        get_arch("jamba-v0.1-52b"), moe=None).reduced())
 
 
 def bf16_model_phase(torch):
@@ -787,6 +785,181 @@ def bf16_model_phase(torch):
             bool((got.argmax(-1) == want.argmax(-1)).all()))
     del params, got, want
     torch.cuda.empty_cache()
+
+
+def moe_times(torch, cfg, moe_params, B, P, mem_rate, bf16_rate):
+    """One ``moe_apply`` of a layer's experts at the prefill shape (B, P)
+    and at the decode shape (B, 1), in ms, each beside its bound: the
+    experts' weights read once, or the three expert products' operations on
+    the (B, E, C) dispatch buffer at the bf16 tensor-core rate."""
+    from repro_torch.models import moe as moe_lib
+    m = cfg.moe
+    dff = m.expert_d_ff or cfg.d_ff
+    E, d = m.num_experts, cfg.d_model
+    weight_bytes = sum(moe_params[k].numel() * moe_params[k].element_size()
+                       for k in ("wi", "wg", "wo"))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for label, S in (("prefill", P), ("decode", 1)):
+        x = torch.randn(B, S, d, device="cuda", generator=gen).to(cfg.param_dtype)
+        C = moe_lib.capacity(cfg, S)
+        flops = 3 * 2 * B * E * C * d * dff
+        ms = time_ms(torch, lambda: moe_lib.moe_apply(moe_params, x, cfg),
+                     reps=10 if S == 1 else 5, warmup=2)
+        bytes_ms = weight_bytes / mem_rate * 1e3
+        ops_ms = flops / bf16_rate * 1e3
+        kept = moe_lib.route(moe_params, x, cfg).keep.float().mean().item()
+        print(f"  one moe_apply at {label} (B {B}, S {S}, E {E}, top-{m.top_k}, "
+              f"C {C}, {kept:.1%} of pairs kept): {ms:.3f} ms; bound "
+              f"{max(bytes_ms, ops_ms):.3f} ms (weights {weight_bytes / 1e9:.2f} "
+              f"GB: {bytes_ms:.3f} ms; {flops / 1e12:.2f} TFLOP on the "
+              f"dispatch buffer: {ops_ms:.3f} ms)")
+        out[label] = ms
+    return out
+
+
+def jamba_moe_phase(torch, counters, ssm_times, fa_times, mem_rate, bf16_rate):
+    """Phase 14: Jamba-v0.1 with its 16 experts at full width, depth cut to
+    one 8-layer period (7 mamba + 1 attention, experts on sublayers 1, 3, 5,
+    7).  Returns the launches and flash's routes of its serve()."""
+    from repro_torch import random, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    print("== 14. serving Jamba-v0.1 with its experts at full width, 8 layers")
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), num_layers=8)
+    B, P, G = 4, 1024, 32
+    n_mamba = cfg.block_pattern.count("mamba") * cfg.num_groups
+    n_attn = cfg.num_layers - n_mamba
+    launches, routes = serve_checked(
+        torch, counters, cfg,
+        {"bwo_evolve": 0, "flash_attention": n_attn * G,
+         "ssm_scan": n_mamba * G},
+        {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
+        "the Jamba-with-experts serving path")
+
+    # one drawing of the weights (serve()'s, seed 0): the count, a prefill
+    # alone, one decode step, and the MoE layers' share of both
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, torch.device("cuda")))
+    n_params, n_bytes = tree_size(tree, params)
+    print(f"  parameter tree: {n_params:,} parameters, {n_bytes:,} bytes "
+          f"(ArchConfig.num_params() reports {cfg.num_params():,}: it counts "
+          f"no FFN on a mamba layer and places MoE on i % 2 == 0)")
+    check(n_params == 13_295_235_072 and n_bytes == 26_592_944_128,
+          f"the tree holds {n_params} parameters in {n_bytes} bytes")
+    prefill_ms, model_ms, sample_ms, cache = step_split(torch, model, params,
+                                                        B, P, G)
+    moe_subs = [i for i in range(cfg.group_size)
+                if "moe" in params["groups"][f"sub{i}"]]
+    n_moe = len(moe_subs) * cfg.num_groups
+    moe_ms = moe_times(torch, cfg, tree.map(
+        lambda a: a[0], params["groups"][f"sub{moe_subs[0]}"]["moe"]),
+        B, P, mem_rate, bf16_rate)
+
+    def shares(part, total_ms):
+        moe = n_moe * moe_ms[part]
+        scan = n_mamba * ssm_times[part]
+        flash = n_attn * fa_times[f"jamba {part}"]
+        return (f"MoE {n_moe} x {moe_ms[part]:.3f} = {moe:.3f} ms "
+                f"({moe / total_ms:.1%}); ssm_scan {n_mamba} x "
+                f"{ssm_times[part]:.4f} = {scan:.3f} ms, flash_attention "
+                f"{n_attn} x {fa_times[f'jamba {part}']:.4f} = {flash:.3f} ms "
+                f"(the kernels {(scan + flash) / total_ms:.1%}, cold)")
+
+    print(f"  prefill alone {prefill_ms:.3f} ms, of which {shares('prefill', prefill_ms)}")
+    print(f"  one decode step: model {model_ms:.3f} ms, of which "
+          f"{shares('decode', model_ms)}; sampling {sample_ms:.3f} ms")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches, routes
+
+
+def deepseek_phase(torch, counters, mem_rate, bf16_rate):
+    """Phase 15: DeepSeek-V2 at full width, depth cut to 2 layers (MLA, 160
+    routed experts top-6 and 2 shared, on every layer).  MLA attends in
+    plain PyTorch, as the reference does: no kernel launches."""
+    from repro_torch import random, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    print("== 15. serving DeepSeek-V2 at full width, 2 layers")
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b"), num_layers=2)
+    B, P, G = 4, 1024, 32
+    serve_checked(torch, counters, cfg,
+                  {"bwo_evolve": 0, "flash_attention": 0, "ssm_scan": 0},
+                  {"tensor_core": 0, "split_k": 0, "cuda_core": 0},
+                  "the DeepSeek-V2 serving path")
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, torch.device("cuda")))
+    n_params, n_bytes = tree_size(tree, params)
+    print(f"  parameter tree: {n_params:,} parameters, {n_bytes:,} bytes "
+          f"(ArchConfig.num_params() reports {cfg.num_params():,})")
+    check(n_params == 8_992_814_080 and n_bytes == 17_988_904_960,
+          f"the tree holds {n_params} parameters in {n_bytes} bytes")
+    prefill_ms, model_ms, sample_ms, cache = step_split(torch, model, params,
+                                                        B, P, G)
+    m = cfg.mla
+    want = {"c_kv": (cfg.num_layers, B, P + G, m.kv_lora_rank),
+            "k_rope": (cfg.num_layers, B, P + G, m.qk_rope_head_dim)}
+    got = {k: tuple(v.shape) for k, v in cache["sub0"].items()}
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache["sub0"].values())
+    print(f"  MLA latent cache {got}, bf16: {cache_bytes:,} bytes "
+          f"(expected {want})")
+    check(got == want and all(v.dtype == torch.bfloat16
+                              for v in cache["sub0"].values()),
+          f"the MLA cache is {got}")
+    moe_ms = moe_times(torch, cfg, tree.map(
+        lambda a: a[0], params["groups"]["sub0"]["moe"]), B, P, mem_rate,
+        bf16_rate)
+    n_moe = cfg.num_layers
+    print(f"  prefill alone {prefill_ms:.3f} ms (MoE {n_moe} x "
+          f"{moe_ms['prefill']:.3f} ms, {n_moe * moe_ms['prefill'] / prefill_ms:.1%}); "
+          f"one decode step: model {model_ms:.3f} ms (MoE {n_moe} x "
+          f"{moe_ms['decode']:.3f} ms, {n_moe * moe_ms['decode'] / model_ms:.1%}), "
+          f"sampling {sample_ms:.3f} ms")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def moe_card_vs_cpu(torch):
+    """Phase 16: greedy serving of the MoE configurations, reduced (float32
+    weights), on the card against the CPU route, as phase 9.  The router's
+    smallest top-k margin (the gap between the k-th expert's probability and
+    the next one's) over each run is printed, and where a token differs the
+    margins at the step that made it, before the check fails: a routing flip
+    near a tie is a finding, not a tolerance."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_lib
+    print("== 16. serving the MoE configurations, reduced, on the card "
+          "against the CPU route")
+    route = moe_lib.route
+    gen = 8
+    for name in ("jamba-v0.1-52b", "deepseek-v2-236b", "arctic-480b"):
+        margins = {"cuda": [], "cpu": []}
+
+        def recording(p, x, cfg, **kw):
+            probs = torch.softmax(x.float() @ p["router"]["w"], dim=-1)
+            top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+            margins[x.device.type].append(
+                (top[..., -2] - top[..., -1]).min().item())
+            return route(p, x, cfg, **kw)
+
+        def at_first_difference(on_card, on_cpu):
+            per_step = len(margins["cpu"]) // gen       # MoE layers
+            j = int((on_card.tokens.cpu() != on_cpu.tokens).any(0)
+                    .float().argmax())
+            steps = slice(j * per_step, (j + 1) * per_step)
+            print(f"  first differing token: {j}; router top-k margins of "
+                  f"the step that made it, by MoE layer: card "
+                  f"{margins['cuda'][steps]}, CPU {margins['cpu'][steps]}")
+
+        moe_lib.route = recording
+        try:
+            card_vs_cpu(torch, name, get_arch(name).reduced(),
+                        on_differ=at_first_difference, gen=gen)
+        finally:
+            moe_lib.route = route
+        print(f"    smallest router top-k margin: card "
+              f"{min(margins['cuda']):.2e}, CPU {min(margins['cpu']):.2e}")
 
 
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
@@ -1634,6 +1807,10 @@ def main() -> int:
                                                fa_times)
     jamba_card_vs_cpu(torch)
     bf16_model_phase(torch)
+    moe_launches, moe_routes = jamba_moe_phase(torch, counters, ssm_times,
+                                               fa_times, mem_rate, bf16_rate)
+    deepseek_phase(torch, counters, mem_rate, bf16_rate)
+    moe_card_vs_cpu(torch)
 
     # --------------------------------------------------------- results --
     kernels = [{
@@ -1646,13 +1823,15 @@ def main() -> int:
                     "split_k": "src/repro_torch/csrc/flash_attention_hopper.cu",
                     "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "launches": serve_launches,
+        "launches": (serve_launches + sum(jamba_routes.values())
+                     + moe_launches["flash_attention"]),
         "route_launches": {"olmo-1b": olmo_routes,
-                           "jamba without experts": jamba_routes}, **fa}, {
+                           "jamba without experts": jamba_routes,
+                           "jamba with experts": moe_routes}, **fa}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
-        "launches": jamba_launches, **ssm}]
+        "launches": jamba_launches + moe_launches["ssm_scan"], **ssm}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

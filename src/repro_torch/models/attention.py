@@ -1,12 +1,15 @@
 """GQA self-attention (RoPE, optional qkv bias, sliding window) with a
-decode KV cache: the port of ``repro/models/attention.py``.
+decode KV cache, and DeepSeek-V2's multi-head latent attention (MLA) with
+its latent cache: the port of ``repro/models/attention.py``.
 
-On CUDA tensors every attention call goes through the hand-written
+On CUDA tensors every GQA attention call goes through the hand-written
 flash-attention kernel (``repro_torch.kernels.flash_attention``); on CPU
 tensors through ``blockwise_attention``, the plain port of the reference's
 memory-bounded attention, which is also the numerical oracle the reference
-names for its kernel.  MLA, cross-attention and the int8 KV cache are not
-ported yet (ROADMAP queue 1, item 12) and raise.
+names for its kernel.  MLA calls ``blockwise_attention`` on every device,
+as the reference does: its heads (qk 192, v 128, 128 query heads on a
+latent) are no shape the kernel takes.  Cross-attention and the int8 KV
+cache are not ported yet (ROADMAP queue 1, item 12) and raise.
 """
 from __future__ import annotations
 
@@ -180,4 +183,118 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
     y = nn.dense_apply(p["wo"], out.reshape(B, S, H * hd))
+    return y, cache
+
+
+# ------------------------------------------------------------------ MLA --
+def mla_init(key, cfg: ArchConfig):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    r = random.split(key, 6)
+    dt = cfg.param_dtype
+    dev = key.device
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": nn.dense_init(r[0], d, m.q_lora_rank, dtype=dt),
+        "q_norm": nn.norm_init("rmsnorm", m.q_lora_rank, dt, device=dev),
+        "wq_b": nn.dense_init(r[1], m.q_lora_rank, H * qk_dim, dtype=dt),
+        "wkv_a": nn.dense_init(r[2], d, m.kv_lora_rank + m.qk_rope_head_dim,
+                               dtype=dt),
+        "kv_norm": nn.norm_init("rmsnorm", m.kv_lora_rank, dt, device=dev),
+        "wkv_b": nn.dense_init(r[3], m.kv_lora_rank,
+                               H * (m.qk_nope_head_dim + m.v_head_dim),
+                               dtype=dt),
+        "wo": nn.dense_init(r[4], H * m.v_head_dim, d, dtype=dt),
+    }
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, *, device):
+    """The latent cache: c_kv and the shared RoPE key, bf16."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def _mla_qkr(p, x, cfg: ArchConfig, positions):
+    """The queries (no-RoPE and RoPE parts), the latent and the RoPE key."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = nn.dense_apply(p["wq_b"], nn.norm_apply(
+        "rmsnorm", p["q_norm"], nn.dense_apply(p["wq_a"], x)))
+    q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = nn.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = nn.dense_apply(p["wkv_a"], x)
+    c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = nn.norm_apply("rmsnorm", p["kv_norm"], c_kv)
+    k_rope = nn.apply_rope(k_rope[:, :, None, :], positions,
+                           cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(p, x, *, cfg: ArchConfig, mode: str, positions, cache=None,
+              cache_pos=None, absorb: bool = True, **_):
+    """Returns (y, new_cache).  Prefill materialises per-head K/V and
+    attends causally; decode attends in the latent space (``absorb``: W_uk
+    folded into the queries, W_uv applied after), in float32 over the whole
+    cache with a ``< kv_len`` mask, so the cache stays kv_lora + rope wide.
+    The cache is written in place, as ``gqa_apply``'s.  Decode takes one
+    position for every row (an int); per-slot positions raise."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, x, cfg, positions)
+    wkv_b = p["wkv_b"]["w"].reshape(m.kv_lora_rank, H,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[..., :m.qk_nope_head_dim].float()        # (L, H, nope)
+    w_uv = wkv_b[..., m.qk_nope_head_dim:].float()        # (L, H, v)
+
+    if mode == "decode":
+        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+            raise NotImplementedError(
+                f"per-slot decode positions for MLA {_NOT_PORTED}: "
+                f"serving/scheduler.py")
+        pos = int(cache_pos)
+        c_cache = _write_at(cache["c_kv"], c_kv, pos)
+        r_cache = _write_at(cache["k_rope"], k_rope, pos)
+        kv_len = pos + 1
+        if absorb:
+            q_lat = torch.einsum("bshn,lhn->bshl", q_nope.float(), w_uk)
+            scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+            c32, r32 = c_cache.float(), r_cache.float()
+            s = (torch.einsum("bshl,btl->bhst", q_lat, c32)
+                 + torch.einsum("bshr,btr->bhst", q_rope.float(), r32)) * scale
+            mask = torch.arange(c_cache.shape[1], device=x.device) < kv_len
+            s = torch.where(mask, s, NEG_INF)
+            pr = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btl->bshl", pr, c32)    # (B,S,H,L)
+            out = torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
+        else:
+            c32 = c_cache.float()
+            k_nope = torch.einsum("btl,lhn->bthn", c32, w_uk)
+            v_full = torch.einsum("btl,lhv->bthv", c32, w_uv)
+            k_full = torch.cat([k_nope, r_cache[:, :, None, :].float().expand(
+                -1, -1, H, -1)], -1)
+            q_full = torch.cat([q_nope, q_rope], -1)
+            out = blockwise_attention(q_full, k_full.to(q_full.dtype),
+                                      v_full.to(q_full.dtype), causal=False,
+                                      window=None, kv_len=kv_len, q_block=8)
+    else:
+        # train / prefill: per-head K/V materialised, as the paper states it
+        c32 = c_kv.float()
+        k_nope = torch.einsum("btl,lhn->bthn", c32, w_uk).to(x.dtype)
+        v_full = torch.einsum("btl,lhv->bthv", c32, w_uv).to(x.dtype)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(-1, -1, H, -1)],
+                           -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        out = blockwise_attention(q_full, k_full, v_full, causal=True,
+                                  window=None, q_block=min(1024, max(8, S)))
+        if mode == "prefill" and cache is not None:
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+    y = nn.dense_apply(p["wo"], out.reshape(B, S, H * m.v_head_dim).to(x.dtype))
     return y, cache

@@ -15,7 +15,11 @@ from repro_torch import random
 
 
 def _normal(key, shape, scale, dtype):
-    return (random.normal(key, shape, torch.float32) * scale).to(dtype)
+    """``normal(key, shape) * scale`` cast to ``dtype``, piece by piece as a
+    large draw is made (the cast is elementwise: the same values)."""
+    return random.fill(
+        key, shape, lambda start, n: (random.normal_at(key, start, n)
+                                      * scale).to(dtype), dtype)
 
 
 # ---------------------------------------------------------------- dense --

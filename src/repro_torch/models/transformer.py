@@ -1,13 +1,14 @@
 """The decoder stack: the port of ``repro/models/transformer.py`` for
-block patterns of attention and Mamba layers with a dense FFN (OLMo,
-Granite, Qwen1.5; Jamba without its experts).
+block patterns of attention (GQA, or MLA where the arch sets it) and Mamba
+layers, each with a dense FFN or a mixture of experts (OLMo, Granite,
+Qwen1.5, Jamba, DeepSeek-V2, Arctic).
 
 Layers are grouped by the arch's repeating ``block_pattern`` and the
 group params are *stacked* along a leading axis (``num_groups``), as in the
 reference, so a parameter tree carries across as a copy; the reference's
-``lax.scan`` over that axis is a loop here.  MoE, MLA, xLSTM,
-encoder-decoder, vision prefixes, cross-attention and learned positions
-are not ported yet and raise in ``build_model`` (ROADMAP queue 1, item 12).
+``lax.scan`` over that axis is a loop here.  xLSTM, encoder-decoder,
+vision prefixes, cross-attention and learned positions are not ported yet
+and raise in ``build_model`` (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch import random, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 
@@ -42,11 +44,32 @@ def _mamba_apply(p, h, *, cfg, mode, positions, cache, cache_pos, window):
     return ssm_lib.mamba_apply(p, h, cfg=cfg, mode=mode, state=cache)
 
 
+def _mla_cache_init(cfg, batch, max_len, *, quantized, device):
+    # the latent cache is already small: int8 applies to GQA caches only
+    return attn.mla_cache_init(cfg, batch, max_len, device=device)
+
+
 # every ported mixer kind; any other raises in build_model
 _MIXERS = {
     "attn": _Mixer(attn.gqa_init, attn.gqa_cache_init, attn.gqa_apply),
     "mamba": _Mixer(ssm_lib.mamba_init, _mamba_state_init, _mamba_apply),
 }
+_MLA = _Mixer(attn.mla_init, _mla_cache_init, attn.mla_apply)
+
+
+def _mixer(cfg: ArchConfig, sub_idx: int) -> _Mixer:
+    kind = cfg.block_pattern[sub_idx]
+    return _MLA if kind == "attn" and cfg.mla is not None else _MIXERS[kind]
+
+
+def _has_moe(cfg: ArchConfig, sub_idx: int) -> bool:
+    if cfg.moe is None:
+        return False
+    kind = cfg.block_pattern[sub_idx]
+    if kind not in ("attn", "mamba"):
+        return False
+    return sub_idx % cfg.moe.every_n_layers == (cfg.moe.every_n_layers - 1) \
+        if cfg.moe.every_n_layers > 1 else True
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
@@ -54,9 +77,7 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
     kinds = sorted(set(cfg.block_pattern) - set(_MIXERS))
     if kinds:
         return f"{'/'.join(kinds)} blocks"
-    for what, present in (("MoE", cfg.moe is not None),
-                          ("MLA", cfg.mla is not None),
-                          ("an encoder", cfg.encoder_layers > 0),
+    for what, present in (("an encoder", cfg.encoder_layers > 0),
                           ("cross-attention", cfg.cross_attention),
                           ("a vision prefix", cfg.vision_tokens > 0),
                           ("learned positions", cfg.pos_emb == "learned")):
@@ -72,11 +93,14 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "norm1": nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                               device=dev),
-        "mixer": _MIXERS[cfg.block_pattern[sub_idx]].init(r[0], cfg),
+        "mixer": _mixer(cfg, sub_idx).init(r[0], cfg),
     }
-    if cfg.ffn != "none":           # attn and mamba layers alike (no MoE)
+    if _has_moe(cfg, sub_idx) or cfg.ffn != "none":
         p["norm2"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                   device=dev)
+    if _has_moe(cfg, sub_idx):
+        p["moe"] = moe_lib.moe_init(r[2], cfg)
+    elif cfg.ffn != "none":
         p["ffn"] = nn.ffn_init(r[2], cfg.ffn, cfg.d_model, cfg.d_ff,
                                cfg.param_dtype)
     return p
@@ -84,21 +108,27 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
 
 def _cache_sublayer(cfg: ArchConfig, sub_idx: int, batch: int,
                     max_len: int, quantized: bool, device):
-    return _MIXERS[cfg.block_pattern[sub_idx]].cache_init(
+    return _mixer(cfg, sub_idx).cache_init(
         cfg, batch, max_len, quantized=quantized, device=device)
 
 
 def _apply_sublayer(p, x, *, cfg: ArchConfig, sub_idx: int, mode: str,
                     positions, cache_entry, cache_pos, window):
+    """Returns (x, new cache, the layer's MoE aux loss or None)."""
     h = nn.norm_apply(cfg.norm, p["norm1"], x)
-    y, new_cache = _MIXERS[cfg.block_pattern[sub_idx]].apply(
+    y, new_cache = _mixer(cfg, sub_idx).apply(
         p["mixer"], h, cfg=cfg, mode=mode, positions=positions,
         cache=cache_entry, cache_pos=cache_pos, window=window)
     x = x + y
-    if "ffn" in p:
+    aux = None
+    if "moe" in p:
+        h = nn.norm_apply(cfg.norm, p["norm2"], x)
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        x = x + y
+    elif "ffn" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
         x = x + nn.ffn_apply(cfg.ffn, p["ffn"], h)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------- model --
@@ -131,7 +161,16 @@ class Model:
                     for i in range(cfg.group_size)}
 
         groups = [init_group(kg) for kg in random.split(r[3], cfg.num_groups)]
-        params["groups"] = tree.map(lambda *xs: torch.stack(xs), *groups)
+        treedef = tree.structure(groups[0])
+        groups = [tree.leaves(g) for g in groups]
+        # stacked leaf by leaf, each group's copy let go once stacked: the
+        # weights are held once, plus one leaf's stack
+        stacked = []
+        for i in range(len(groups[0])):
+            stacked.append(torch.stack([g[i] for g in groups]))
+            for g in groups:
+                g[i] = None
+        params["groups"] = tree.unflatten(treedef, stacked)
         return params
 
     # ---------------- cache ----------------
@@ -148,7 +187,7 @@ class Model:
     def apply(self, params, batch: Dict[str, Any], *, mode: str,
               cache=None, cache_pos=None, window: Optional[int] = None):
         """Returns (logits, new_cache, aux_loss); logits in float32 for
-        every position.  ``cache_pos`` (decode) is an int or a (B,) tensor.
+        every position, aux_loss the sum of the MoE layers' (0 without).  ``cache_pos`` (decode) is an int or a (B,) tensor.
         The cache is written in place (see ``attention.gqa_apply`` and
         ``ssm.mamba_apply``): each group's entries are views into it."""
         cfg = self.cfg
@@ -165,22 +204,26 @@ class Model:
             positions = torch.arange(S, device=dev)[None]
         x = x.to(cfg.param_dtype)
 
+        # the MoE layers' load-balance losses, summed in the reference's
+        # order (groups, then sublayers)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         for g in range(cfg.num_groups):
             gparams = tree.map(lambda a: a[g], params["groups"])
             gcache = None if cache is None else tree.map(lambda a: a[g], cache)
             for i in range(cfg.group_size):
-                x, _ = _apply_sublayer(
+                x, _, a = _apply_sublayer(
                     gparams[f"sub{i}"], x, cfg=cfg, sub_idx=i, mode=mode,
                     positions=positions,
                     cache_entry=None if gcache is None else gcache[f"sub{i}"],
                     cache_pos=cache_pos, window=window)
+                if a is not None:
+                    aux = aux + a
 
         x = nn.norm_apply(cfg.norm, params["final_norm"], x)
         if cfg.tie_embeddings:
             logits = nn.embedding_attend(params["embed"], x)
         else:
             logits = nn.dense_apply(params["lm_head"], x)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
         return logits.float(), cache, aux
 
 
@@ -189,6 +232,6 @@ def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
     if missing is not None:
         raise NotImplementedError(
             f"{cfg.name}: {missing} not ported yet (ROADMAP queue 1, "
-            f"item 12); the port serves attention and mamba layers with "
-            f"a dense FFN")
+            f"item 12); the port serves attention (GQA or MLA) and mamba "
+            f"layers with a dense FFN or experts")
     return Model(cfg=cfg, max_seq=max_seq)

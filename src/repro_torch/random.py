@@ -20,6 +20,11 @@ Each sampler mirrors the ``jax/_src/random.py`` function of the same name
 ``permutation`` sorts by fresh 32-bit keys ``ceil(3 ln n / ln(2^32 - 1))``
 times, ``choice`` without replacement takes a permutation's prefix, and
 ``categorical`` is the Gumbel-max trick over ``gumbel`` (mode "low").
+
+A draw of more than ``PIECE`` elements is made piece by piece over
+disjoint counter ranges into one preallocated output, which gives the same
+values element for element and bounds the int64 and float64 temporaries by
+the piece, not the draw (a stack of experts is over a billion elements).
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 Shape = Union[int, Sequence[int]]
+
+PIECE = 1 << 26              # counters hashed at once by a large draw
 
 
 def _shape(shape: Shape) -> tuple:
@@ -68,11 +75,27 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def _hash_iota(key, n: int):
-    """Both output words for the counters 0..n-1 under ``key``."""
+def _hash_iota(key, n: int, start: int = 0):
+    """Both output words for the counters start..start+n-1 under ``key``."""
     k1, k2 = _words(key)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     return threefry2x32(k1, k2, idx >> 32, idx & MASK)
+
+
+def fill(key: torch.Tensor, shape: Shape, draw, dtype) -> torch.Tensor:
+    """A draw of ``shape`` in ``dtype``, where ``draw(start, n)`` gives the
+    values of the flat counters start..start+n-1.  Up to ``PIECE`` elements
+    it is one call; above, each piece of ``PIECE`` counters is drawn, cast
+    and written into one preallocated output."""
+    shape = _shape(shape)
+    n = math.prod(shape)
+    if n <= PIECE:
+        return draw(0, n).to(dtype).reshape(shape)
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    for start in range(0, n, PIECE):
+        m = min(PIECE, n - start)
+        out[start:start + m] = draw(start, m)
+    return out.reshape(shape)
 
 
 def PRNGKey(seed: int, device) -> torch.Tensor:
@@ -99,9 +122,13 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: unsigned 32-bit values held
     in an int64 tensor.  The counter is the flat row-major index, so the
     same key gives other bits at another shape."""
-    shape = _shape(shape)
-    y1, y2 = _hash_iota(key, math.prod(shape))
-    return (y1 ^ y2).reshape(shape)
+    return fill(key, shape, lambda start, n: _bits_at(key, start, n),
+                torch.int64)
+
+
+def _bits_at(key, start: int, n: int):
+    y1, y2 = _hash_iota(key, n, start)
+    return y1 ^ y2
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
@@ -110,20 +137,24 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)."""
     if dtype != torch.float32:
         raise NotImplementedError(f"uniform is ported for float32, got {dtype}")
-    shape = _shape(shape)
-    b = bits(key, shape)
-    # the float in [1, 2) with mantissa m = b >> 9, less 1, is m * 2^-23
-    # exactly; computed so, not by a bit cast, since older torch has no
-    # vmap rule for a dtype view
-    f = (b >> 9).to(torch.float32) * (1.0 / (1 << 23))
     # filled on the device: a tensor built from a host scalar is a copy
     # from pageable memory and a sync, which a CUDA graph capture refuses
     lo = torch.full((), minval, dtype=dtype, device=key.device)
     hi = torch.full((), maxval, dtype=dtype, device=key.device)
+    return fill(key, shape, lambda start, n: _uniform_at(key, start, n, lo, hi),
+                dtype)
+
+
+def _uniform_at(key, start: int, n: int, lo, hi):
+    b = _bits_at(key, start, n)
+    # the float in [1, 2) with mantissa m = b >> 9, less 1, is m * 2^-23
+    # exactly; computed so, not by a bit cast, since older torch has no
+    # vmap rule for a dtype view
+    f = (b >> 9).to(torch.float32) * (1.0 / (1 << 23))
     # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the
     # float64 product of two float32 values is exact, so this rounds as
     # the FMA does (barring a double-rounding tie)
-    scaled = (f.double() * (hi - lo).double() + lo.double()).to(dtype)
+    scaled = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 
 
@@ -180,9 +211,18 @@ def normal(key: torch.Tensor, shape: Shape = (),
     """``jax.random.normal``: sqrt(2) * erfinv(u) with u uniform on
     (nextafter(-1, 0), 1).  ``torch.log1p`` and XLA's differ in the last
     bit, so a draw agrees with JAX's within 1e-6, not exactly."""
-    u = uniform(key, shape, dtype, _NORMAL_LO, 1.0)
-    return _erfinv(u) * torch.full((), math.sqrt(2.0), dtype=dtype,
-                                   device=key.device)
+    if dtype != torch.float32:
+        raise NotImplementedError(f"normal is ported for float32, got {dtype}")
+    return fill(key, shape, lambda start, n: normal_at(key, start, n), dtype)
+
+
+def normal_at(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Elements start..start+n-1 of any flat float32 ``normal`` draw under
+    ``key``: the piece ``fill`` asks for."""
+    lo = torch.full((), _NORMAL_LO, dtype=torch.float32, device=key.device)
+    hi = torch.full((), 1.0, dtype=torch.float32, device=key.device)
+    return _erfinv(_uniform_at(key, start, n, lo, hi)) * torch.full(
+        (), math.sqrt(2.0), dtype=torch.float32, device=key.device)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -19,14 +19,16 @@ def structure(tree):
 
 
 def unflatten(treedef, items) -> Any:
-    it = iter(items)
+    return _build(treedef, iter(items))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(treedef)
+def _build(node, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would hold ``items`` (and every leaf) until
+    # the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def map(fn: Callable, tree, *rest):  # noqa: A001 — mirrors jax.tree.map

@@ -521,3 +521,32 @@ def test_a_capture_that_syncs_raises():
     with pytest.raises(RuntimeError):
         server.run_block(2, eval_data=teval, eval_every=1)
     assert server._engine.graphs == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 64])
+def test_moe_layer_on_the_card_matches_the_cpu_route(S, dtype):
+    """The MoE layer (no kernel of its own: cuBLAS products and an
+    ``index_add_`` dispatch) on the card against the same layer on the
+    CPU: the same experts and positions, and outputs within 1e-5 (float32,
+    TF32 off) or two bf16 steps of the largest (bfloat16: at most one kept
+    pair lands in each dispatch row, so the scatter is exact, and the
+    products round in other places)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("deepseek-v2-236b").reduced()
+    cfg = dataclasses.replace(cfg, param_dtype=getattr(torch, dtype))
+    p = moe.moe_init(R.PRNGKey(S, "cpu"), cfg)
+    x = R.normal(R.PRNGKey(S + 1, "cpu"), (3, S, cfg.d_model)).to(cfg.param_dtype)
+    y, aux = moe.moe_apply(p, x, cfg)
+    pc = tree.map(lambda t: t.cuda(), p)
+    yc, auxc = moe.moe_apply(pc, x.cuda(), cfg)
+    rt, rtc = moe.route(p, x, cfg), moe.route(pc, x.cuda(), cfg)
+    assert torch.equal(rt.eidx, rtc.eidx.cpu()) and torch.equal(rt.pos, rtc.pos.cpu())
+    tol = 1e-5 if dtype == "float32" else y.float().abs().max().item() * 2 ** -6
+    torch.testing.assert_close(yc.cpu().float(), y.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(auxc.cpu(), aux, rtol=1e-5, atol=1e-6)

@@ -120,3 +120,55 @@ def test_categorical_gives_the_reference_tokens(seed, B, V, scale):
     got = R.categorical(tk, torch.as_tensor(logits)).numpy()
     assert got.shape == want.shape == (B,)
     assert (got == want).all()
+
+
+# ------------------------------------------------- draws made in pieces --
+@pytest.mark.parametrize("piece", [5, 1000, 2048])
+@pytest.mark.parametrize("sampler", ["bits", "uniform", "normal"])
+def test_a_draw_in_pieces_is_the_whole_draw(monkeypatch, sampler, piece):
+    """Above ``PIECE`` elements a draw is filled piece by piece over
+    disjoint counter ranges: the same values, bit for bit, and the
+    reference's (bits and uniform exactly, normal within erfinv's bit)."""
+    shape = (7, 333)
+    tk, jk = R.PRNGKey(11, "cpu"), jax.random.PRNGKey(11)
+    draw = getattr(R, sampler)
+    whole = draw(tk, shape)
+    monkeypatch.setattr(R, "PIECE", piece)
+    got = draw(tk, shape)
+    assert got.dtype == whole.dtype and got.shape == whole.shape
+    assert torch.equal(got, whole)
+    if sampler == "bits":
+        assert (np64(jax.random.bits(jk, shape, jnp.uint32)) == got.numpy()).all()
+    elif sampler == "uniform":
+        assert (np.asarray(jax.random.uniform(jk, shape)) == got.numpy()).all()
+    else:
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jax.random.normal(jk, shape)),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("start", [0, 2**32 - 5, 2**32, 3 * 2**32 + 17])
+def test_a_piece_hashes_its_own_counters(start):
+    """A piece starting at ``start`` hashes the 64-bit counters
+    start..start+n-1 as JAX's partitionable layout does: high word, low
+    word, bits the XOR of the two outputs.  Held to JAX's threefry2x32
+    directly, across and above 2^32 (a 4.46 G-element stack of experts
+    reaches them)."""
+    from jax._src import prng
+    n = 9
+    jk = jax.random.PRNGKey(12)
+    idx = np.arange(start, start + n, dtype=np.uint64)
+    out = np.asarray(prng.threefry_2x32(jk, jnp.asarray(np.concatenate(
+        [(idx >> 32).astype(np.uint32), (idx & R.MASK).astype(np.uint32)]))))
+    want = (out[:n] ^ out[n:]).astype(np.int64)
+    assert (R._bits_at(tkey(jk), start, n).numpy() == want).all()
+    # normal_at maps those bits as normal() maps a whole draw's
+    if start == 0:
+        np.testing.assert_array_equal(R.normal_at(tkey(jk), 0, n).numpy(),
+                                      R.normal(tkey(jk), (n,)).numpy())
+
+
+def test_only_float32_uniform_and_normal_draws():
+    for draw in (R.uniform, R.normal):
+        with pytest.raises(NotImplementedError, match="float32"):
+            draw(R.PRNGKey(0, "cpu"), (3,), torch.bfloat16)

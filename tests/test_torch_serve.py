@@ -12,7 +12,9 @@ Jamba without its experts (``moe=None``) ``.reduced()`` is served the same
 way, greedy and at temperature 300: its mamba layers scan through the
 plain version of the ``ssm_scan`` kernel, the reference's through its
 associative scan, and its logits agree to ~2e-4 (its attention layers
-read the bf16 cache; tests/test_torch_transformer.py)."""
+read the bf16 cache; tests/test_torch_transformer.py).  So are the MoE
+archs (Jamba with its experts, DeepSeek-V2, Arctic), greedy and at
+temperature 1."""
 
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from repro.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro.models.transformer import build_model as jbuild  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
-from test_torch_transformer import JAMBA, arch_cfgs  # noqa: E402
+from test_torch_transformer import JAMBA, MOE_ARCHS, arch_cfgs  # noqa: E402
 
 BATCH, PROMPT, GEN = 2, 16, 8
 
@@ -103,6 +105,23 @@ def test_cli_runs_on_the_cpu_and_raises_without_a_card(capsys):
                         "--prompt-len", "4", "--gen", "3"])
 
 
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_serve_moe_archs_give_the_reference_tokens(name, temperature):
+    """Jamba with its experts, DeepSeek-V2 (MLA, shared experts) and Arctic
+    (a dense residual), reduced, greedy and sampled at temperature 1: their
+    logits are O(1) and agree to ~1e-4 (tests/test_torch_transformer.py),
+    far inside the gaps the sampler's Gumbel draws leave."""
+    cfg, jcfg = arch_cfgs(name)
+    res = serve_mod.serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                          temperature=temperature, device="cpu")
+    want, want_logits = _reference_tokens(temperature, cfg=jcfg)
+    assert res.tokens.dtype == torch.int32 and res.tokens.shape == (BATCH, GEN)
+    assert (res.tokens.numpy() == want).all()
+    np.testing.assert_allclose(res.logits.numpy(), want_logits, rtol=0,
+                               atol=1e-2)
+
+
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve(get_arch("jamba-v0.1-52b").reduced(), device="cpu")
+        serve_mod.serve(get_arch("xlstm-1.3b").reduced(), device="cpu")
