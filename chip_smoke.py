@@ -101,12 +101,42 @@ Phases, each printing its own lines; any failure exits non-zero:
     plain PyTorch, as the reference does: no kernel launches), its tree
     (8,992,814,080) and latent cache checked, the same split;
 16. serving the reduced MoE configurations (Jamba with experts,
-    DeepSeek-V2, Arctic) on the card against the port's CPU route, greedy.
+    DeepSeek-V2, Arctic) on the card against the port's CPU route, greedy;
+17. ``flash_attention``'s backward kernel against its plain version
+    (``flash_attention_bwd_ref``) on the card, at OLMo-1B's and Jamba's
+    train shapes and the reference's kernel sweep, float32 and bf16, with
+    the kernel's, the plain version's and SDPA's backward times and the
+    bound at the two train shapes;
+18. ``ssm_scan``'s backward kernel against ``ssm_scan_bwd_ref``, at the
+    reference's scan cases with and without h0 and at Jamba's train shape,
+    A drawn and as the mamba initialisation sets it, two launches at
+    Jamba's shape equal bit for bit (no atomics), with the times and the
+    bound there;
+19. training OLMo-1B at full width and depth:
+    ``make_train_step(build_model(get_arch("olmo-1b"), max_seq=1024),
+    adamw(warmup_cosine(3e-4, 10, 4)))`` on ``make_token_dataset``
+    batches of 4 x 1024, a warm-up step and three timed ones, every
+    launch counter set to 0 just before each step and read just after (32
+    flash forwards, all on the tensor cores, and 16 backwards), loss, aux
+    and grad_norm finite, the step split into forward plus backward,
+    clipping and the AdamW update, every parameter leaf's gradient
+    non-zero, the peak memory, the tree counted (1,176,764,416), and one
+    step's gradients through the kernels against the same step with the
+    plain versions in their place, leaf by leaf (within 2^-4 of each
+    leaf's largest entry);
+20. the same for Jamba without experts at full width, depth cut to one
+    8-layer period (7 mamba + 1 attention; 2,725,326,848 parameters): 14
+    scan forwards and 7 backwards, 2 flash forwards and 1 backward a step;
+    the plain comparison at sequence 256 (``ssm_scan_ref``'s per-step
+    autograd graph at 1024 does not fit beside the model);
+21. three train steps of reduced OLMo-1B, Jamba with its experts and
+    DeepSeek-V2 (float32) on the card against the port's CPU route, from
+    one state: losses, aux and grad norms within 1e-3 relative.
 
 It then prints one JSON line describing every ported kernel (``launches``
-summed over the serving paths that run it, flash's per path in
-``route_launches``), and as the last line ``{"ok": true, "device":
-{...}}``.  Without a CUDA device, or
+summed over the paths that run it, serving and one train step of each
+model, flash's per path in ``route_launches``), the backward kernels
+included, and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it fails and prints no
 result.
 """
@@ -485,7 +515,8 @@ def serve_phase(torch, counters, decode_kernel_ms):
     print(f"  {cfg.num_params():,} parameters")
     launches, routes = serve_checked(
         torch, counters, cfg,
-        {"bwo_evolve": 0, "flash_attention": want, "ssm_scan": 0},
+        {"bwo_evolve": 0, "flash_attention": want, "ssm_scan": 0,
+         "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
         {"tensor_core": cfg.num_layers, "split_k": cfg.num_layers * (G - 1),
          "cuda_core": 0}, "the OLMo-1B serving path")
     # the same serve() again in this process: its times without the first
@@ -651,7 +682,7 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
     launches, routes = serve_checked(
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
-         "ssm_scan": n_mamba * G},
+         "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
         {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
         "the Jamba serving path")
 
@@ -833,7 +864,7 @@ def jamba_moe_phase(torch, counters, ssm_times, fa_times, mem_rate, bf16_rate):
     launches, routes = serve_checked(
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
-         "ssm_scan": n_mamba * G},
+         "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
         {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
         "the Jamba-with-experts serving path")
 
@@ -885,7 +916,8 @@ def deepseek_phase(torch, counters, mem_rate, bf16_rate):
     cfg = dataclasses.replace(get_arch("deepseek-v2-236b"), num_layers=2)
     B, P, G = 4, 1024, 32
     serve_checked(torch, counters, cfg,
-                  {"bwo_evolve": 0, "flash_attention": 0, "ssm_scan": 0},
+                  {"bwo_evolve": 0, "flash_attention": 0, "ssm_scan": 0,
+                   "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
                   {"tensor_core": 0, "split_k": 0, "cuda_core": 0},
                   "the DeepSeek-V2 serving path")
     model = build_model(cfg, max_seq=P + G)
@@ -960,6 +992,390 @@ def moe_card_vs_cpu(torch):
             moe_lib.route = route
         print(f"    smallest router top-k margin: card "
               f"{min(margins['cuda']):.2e}, CPU {min(margins['cpu']):.2e}")
+
+
+# The backward kernels.  flash: B, S, H, KV, hd, causal, window, dtype
+# (queries from position 0 against every key, as training calls it): the
+# train shapes of OLMo-1B and Jamba, and the reference's kernel sweep,
+# each in float32 and bf16.  Tolerance, of each gradient's largest entry:
+# float32 1e-4 (fp32 sums in another order than the plain version's, through
+# exp); bf16 2^-7 (both round one fp32 result to bf16, a step of 2^-8 at
+# the largest).
+OLMO_TRAIN = (4, 1024, 16, 16, 128, True, None)
+JAMBA_TRAIN = (4, 1024, 32, 8, 128, True, None)
+FA_BWD_TIMED = (("olmo train", OLMO_TRAIN), ("jamba train", JAMBA_TRAIN))
+FA_BWD_SHAPES = [c + (dt,) for c in
+                 [OLMO_TRAIN, JAMBA_TRAIN] + [(B, Sq, H, KV, hd, causal, w)
+                                              for B, Sq, _, H, KV, hd, causal, w
+                                              in TEST_CASES]
+                 for dt in (BF16, F32)]
+FA_BWD_TOL = {F32: 1e-4, BF16: 2 ** -7}
+# ssm_scan's backward: the reference's scan cases with and without h0 (and a
+# last-state gradient with h0), then Jamba's train shape; tolerance 1e-4 of
+# each gradient's largest entry (at least 1), as the forward's
+SSM_BWD_SHAPES = ([c + (h0,) for c in SSM_TEST_CASES for h0 in (False, True)]
+                  + [JAMBA_PREFILL])
+SSM_BWD_FLOPS = 12           # fp32 operations per (b, t, d, n) besides exp:
+                             # the state recomputed (3), the step back (9)
+# One train step's gradients through the kernels against the same step with
+# the plain versions in the kernels' place, leaf by leaf, within this share
+# of each leaf's largest entry.  Both routes compute in bf16 (weights,
+# activations, gradients) around the attention and the scan; they differ
+# where the kernels round P to bf16 and sum in other orders, a bf16 step
+# or two of an element (2^-8 each), which the layers' backward carries on.
+# A missing or wrong gradient differs by the order of the gradient itself.
+TRAIN_GRAD_TOL = 2 ** -4
+# The reduced train steps on the card against the CPU route, float32:
+# losses, aux and grad norms within this relative tolerance over 3 steps.
+TRAIN_CARD_CPU_RTOL = 1e-3
+
+
+def rel_to_largest(got, want):
+    """max |got - want| over max(1, max |want|), in float32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+def flash_bwd_phase(torch, mem_rate, bf16_rate):
+    """Phase 17.  Returns the backward kernel's entry of the kernels line
+    (all but its launches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    print("== 17. flash_attention backward against its plain version on the "
+          "card")
+    dtypes = {F32: torch.float32, BF16: torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    max_err, inputs = 0.0, {}
+    for shape in FA_BWD_SHAPES:
+        B, S, H, KV, hd, causal, window, dt = shape
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtypes[dt])
+        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen)
+                .to(dtypes[dt]) for _ in range(2))
+        do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtypes[dt])
+        kw = dict(causal=causal, window=window)
+        o = fa_ops.flash_attention(q, k, v, **kw)
+        got = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_to_largest(g, w) for g, w in zip(got, want)]
+        tol = FA_BWD_TOL[dt]
+        ok = (all(g.dtype == w.dtype and g.shape == w.shape
+                  for g, w in zip(got, want))
+              and all(math.isfinite(e) and e <= tol for e in errs))
+        print(f"  B={B} S={S} H={H} KV={KV} hd={hd} causal={causal} "
+              f"window={window} {dt}: dq, dk, dv errors "
+              f"{', '.join(f'{e:.2e}' for e in errs)} of the largest entry "
+              f"(tol {tol:.3g}) {'ok' if ok else 'FAILED'}")
+        check(ok, f"flash_attention's backward disagrees at {shape}")
+        max_err = max(max_err, *errs)
+        if dt == BF16 and shape[:7] in (OLMO_TRAIN, JAMBA_TRAIN):
+            inputs[shape[:7]] = (q, k, v, o, do, kw)
+        del got, want, lse
+
+    shapes = {}
+    for label, shape in FA_BWD_TIMED:
+        B, S, H, KV, hd, causal, window = shape
+        q, k, v, o, do, kw = inputs[shape]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=H != KV)
+        dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        def plain():
+            lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
+            return fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
+        pairs, _ = valid_pairs(S, S, causal, window, 0, None)
+        nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * q.element_size()
+        flops = 10 * B * H * hd * pairs         # 5 products, 2 FLOP each
+        print(f"  {label} {shape} bf16: {nbytes / 1e6:.1f} MB (q, k, v, o, "
+              f"dO read, dq, dk, dv written), {flops / 1e9:.2f} GFLOP (5 "
+              f"products over {pairs:,} pairs a head)")
+        shapes[label] = timed_entry(
+            torch, lambda: fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw),
+            plain, sdpa_bwd, nbytes, [(flops, bf16_rate)], mem_rate)
+        del out, qt, kt, vt
+    del inputs
+    torch.cuda.empty_cache()
+    first = shapes[FA_BWD_TIMED[0][0]]
+    return {"max_abs_err": max_err,
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+            "shapes": shapes}
+
+
+def ssm_bwd_phase(torch, mem_rate, f32_rate, exp_rate):
+    """Phase 18.  Returns the backward kernel's entry of the kernels line
+    (all but its launches)."""
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd as ssm_bwd
+    print("== 18. ssm_scan backward against its plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    max_err, timed = 0.0, None
+    for shape in SSM_BWD_SHAPES:
+        B, S, D, N, with_h0 = shape
+        for mamba_A in ((True,) if shape == JAMBA_PREFILL else (False, True)):
+            args = ssm_inputs(torch, shape, gen, mamba_A)
+            dy = torch.randn(B, S, D, device="cuda", generator=gen)
+            dh = (torch.randn(B, D, N, device="cuda", generator=gen)
+                  if with_h0 else None)
+            got = ssm_bwd.ssm_scan_bwd_cuda(*args, dy, dh)
+            want = ssm_ref.ssm_scan_bwd_ref(*args, dy, dh)
+            torch.cuda.synchronize()
+            errs = [rel_to_largest(g, w) for g, w in zip(got, want)
+                    if w is not None]
+            ok = ((got[5] is None) == (not with_h0)
+                  and all(math.isfinite(e) and e <= SSM_TOL for e in errs))
+            print(f"  B,S,D,N,h0={shape} A {'-(1..N)' if mamba_A else 'drawn'}"
+                  f"{', dh' if dh is not None else ''}: dx, ddt, dA, dB, dC"
+                  f"{', dh0' if with_h0 else ''} errors "
+                  f"{', '.join(f'{e:.2e}' for e in errs)} (tol {SSM_TOL}) "
+                  f"{'ok' if ok else 'FAILED'}")
+            check(ok, f"ssm_scan's backward disagrees at {shape}")
+            max_err = max(max_err, *errs)
+            del got, want
+            if shape == JAMBA_PREFILL:
+                timed = (args, dy)
+    (x, dt, A, Bc, Cc, h0), dy = timed
+    again = [ssm_bwd.ssm_scan_bwd_cuda(x, dt, A, Bc, Cc, h0, dy)
+             for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*again) if a is not None)
+    print(f"  two launches at {JAMBA_PREFILL}: "
+          f"{'the same bits' if same else 'DIFFERENT bits'}")
+    check(same, "ssm_scan's backward is not deterministic")
+    del again
+    B, S, D, N, _ = JAMBA_PREFILL
+    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N)
+    exps = B * S * D * N
+    print(f"  train {JAMBA_PREFILL}: {nbytes / 1e6:.1f} MB (x, dt, dy read, "
+          f"dx, ddt written; B, C, A and their gradients), {exps / 1e6:.1f} M "
+          f"exp (the forward's, recomputed once), "
+          f"{SSM_BWD_FLOPS * exps / 1e9:.2f} GFLOP fp32")
+    entry = timed_entry(
+        torch, lambda: ssm_bwd.ssm_scan_bwd_cuda(x, dt, A, Bc, Cc, h0, dy),
+        lambda: ssm_ref.ssm_scan_bwd_ref(x, dt, A, Bc, Cc, h0, dy), None,
+        nbytes, [(exps, exp_rate), (SSM_BWD_FLOPS * exps, f32_rate)], mem_rate)
+    del timed, x, dt, A, Bc, Cc, dy
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **entry, "shapes": {"train": dict(entry)}}
+
+
+def with_plain_kernels(torch, counters, fn):
+    """``fn()`` with the plain versions put in the kernels' place by this
+    script (the package has no switch): ``flash_attention_ref`` for the
+    attention and ``ssm_scan_ref`` for the scan, both differentiated by
+    torch autograd.  The run must launch no kernel."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    from repro_torch.models import attention, ssm
+    kernels = (attention.fa_ops.flash_attention, ssm.ssm_ops.ssm_scan)
+
+    def plain_scan(x, dt, A, Bc, Cc, h0=None, *, h_out=None):
+        check(h_out is None, "the plain scan takes no h_out")
+        return ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0)
+
+    before = read_counts(counters)
+    attention.fa_ops.flash_attention = fa_ref.flash_attention_ref
+    ssm.ssm_ops.ssm_scan = plain_scan
+    try:
+        out = fn()
+    finally:
+        attention.fa_ops.flash_attention, ssm.ssm_ops.ssm_scan = kernels
+    check(read_counts(counters) == before, "the run with the plain versions "
+          "in the kernels' place launched a kernel")
+    return out
+
+
+def train_cells():
+    """Phases 19 and 20, by number: the arguments of ``train_phase`` after
+    ``counters`` (its title, the configuration, the tree's parameters, the
+    launches of a step, the plain comparison's sequence)."""
+    from repro_torch.configs import get_arch
+    jamba8 = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None,
+                                 num_layers=8)
+    return {
+        "19": ("19. training OLMo-1B at full width and depth",
+               get_arch("olmo-1b"), 1_176_764_416,
+               {"bwo_evolve": 0, "flash_attention": 32,
+                "flash_attention_bwd": 16, "ssm_scan": 0, "ssm_scan_bwd": 0},
+               1024),
+        "20": ("20. training Jamba without experts at full width, 8 layers",
+               jamba8, 2_725_326_848,
+               {"bwo_evolve": 0, "flash_attention": 2,
+                "flash_attention_bwd": 1, "ssm_scan": 14, "ssm_scan_bwd": 7},
+               256)}
+
+
+def train_phase(torch, counters, title, cfg, want_params, want_launches,
+                plain_seq):
+    """Phases 19 and 20: ``make_train_step(build_model(cfg, max_seq=1024),
+    adamw(warmup_cosine(3e-4, 10, steps)))`` on ``make_token_dataset``
+    batches of 4 x 1024 at full width: a warm-up step, then timed steps,
+    every launch counter set to 0 just before each step and read just after
+    (``want_launches`` each); the tree's parameters (``want_params``); loss, aux and grad_norm finite; the step split
+    into forward plus backward, clipping and the AdamW update; every
+    parameter leaf's gradient non-zero; the peak memory; one step's
+    gradients through the kernels against the plain versions' at sequence
+    ``plain_seq``.  Returns the launches of a step and the step's times."""
+    from repro_torch import optim, random, tree
+    from repro_torch.data import make_token_dataset
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models.transformer import build_model
+    print(f"== {title}")
+    B, S, steps = 4, 1024, 4
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, max_seq=S)
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 10, steps))
+    train_step, init_state = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    state = init_state(random.PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, n_bytes = tree_size(tree, state["params"])
+    moments = tree_size(tree, state["opt"])[1]
+    print(f"  {cfg.num_layers} layers {cfg.block_pattern}, d {cfg.d_model}, "
+          f"{cfg.param_dtype}; parameter tree {n_params:,} parameters, "
+          f"{n_bytes:,} bytes; AdamW moments {moments:,} bytes; init "
+          f"{init_s:.3f} s")
+    check(n_params == want_params, f"the tree holds {n_params} parameters, "
+          f"expected {want_params}")
+    data = make_token_dataset(random.PRNGKey(1, dev), n_seqs=B * steps,
+                              seq_len=S, vocab=cfg.vocab_size)
+    batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()}
+               for i in range(steps)]
+    step_s, launches, routes = [], None, None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got, got_routes = read_counts(counters), dict(fa_kernel.route_launches)
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"  step {i}{' (warm-up)' if i == 0 else ''}: {dt * 1e3:.1f} ms  "
+              f"loss {vals['loss']:.4f}  aux {vals['aux']:.4f}  grad_norm "
+              f"{vals['grad_norm']:.4f}; launches {got}")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"non-finite metrics at step {i}: {vals}")
+        check(got == want_launches, f"launches in step {i}: {got}, expected "
+              f"{want_launches}")
+        check(got_routes["split_k"] == got_routes["cuda_core"] == 0,
+              f"the train step's attention left the tensor cores: {got_routes}")
+        if i > 0:
+            step_s.append(dt)
+        launches, routes = got, got_routes
+    check(int(state["step"]) == steps, f"step count {int(state['step'])}")
+
+    # the step's parts on the next batch, and every leaf's gradient
+    grad_fn = make_grad_fn(model)
+    batch = batches[0]
+    params, leaves = state["params"], tree.leaves(state["params"])
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    parts["forward + backward"] = time.perf_counter() - t0
+    zero = [i for i, g in enumerate(tree.leaves(grads))
+            if not bool(g.abs().max() > 0) or not bool(torch.isfinite(g).all())]
+    t0 = time.perf_counter()
+    optim.clip_by_global_norm_(grads, 1.0)
+    torch.cuda.synchronize()
+    parts["clipping"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt.update_(params, grads, state["opt"], state["step"])
+    torch.cuda.synchronize()
+    parts["AdamW update"] = time.perf_counter() - t0
+    del grads
+    peak = torch.cuda.max_memory_allocated()
+    total = sum(parts.values())
+    print(f"  steps {', '.join(f'{t * 1e3:.1f}' for t in step_s)} ms "
+          f"(tokens/s {B * S / statistics.median(step_s):.0f}); one step's "
+          f"parts: " + ", ".join(f"{k} {v * 1e3:.1f} ms ({v / total:.1%})"
+                                 for k, v in parts.items()))
+    print(f"  {len(leaves)} parameter leaves, {len(leaves) - len(zero)} with "
+          f"a non-zero, finite gradient; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    check(not zero, f"parameter leaves {zero} got a zero or non-finite "
+          f"gradient")
+
+    # one step's gradients through the kernels against the plain versions'
+    short = {k: v[:, :plain_seq] for k, v in batch.items()}
+    _, through = grad_fn(params, short)
+    _, plain = with_plain_kernels(torch, counters,
+                                  lambda: grad_fn(params, short))
+    ratios = [(g.float() - w.float()).abs().max().item()
+              / max(1e-30, w.float().abs().max().item())
+              for g, w in zip(tree.leaves(through), tree.leaves(plain))]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    print(f"  gradients through the kernels against the plain versions "
+          f"(sequence {plain_seq}), leaf by leaf, largest difference over the "
+          f"leaf's largest entry: max {ratios[worst]:.3e} (leaf {worst}), "
+          f"median {statistics.median(ratios):.3e} (tol {TRAIN_GRAD_TOL:.4g})")
+    check(all(math.isfinite(r) and r <= TRAIN_GRAD_TOL for r in ratios),
+          "the kernels' gradients disagree with the plain versions'")
+    del through, plain, state, params, leaves, data, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": [t * 1e3 for t in step_s],
+                      "parts_ms": {k: v * 1e3 for k, v in parts.items()},
+                      "peak_gib": peak / 2**30, "routes": routes,
+                      "grad_vs_plain": {"max": ratios[worst], "leaf": worst,
+                                        "median": statistics.median(ratios)}}
+
+
+def train_card_vs_cpu(torch):
+    """Phase 21: three train steps of reduced OLMo-1B, Jamba with its
+    experts and DeepSeek-V2 (float32) from one state, on the card and on
+    the port's CPU route: losses, aux and grad norms within
+    TRAIN_CARD_CPU_RTOL relative."""
+    from repro_torch import optim, random, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_token_dataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import build_model
+    print("== 21. reduced train steps on the card against the CPU route")
+    B, S = 2, 64
+    for name in ("olmo-1b", "jamba-v0.1-52b", "deepseek-v2-236b"):
+        cfg = get_arch(name).reduced()
+        model = build_model(cfg, max_seq=S)
+        data = make_token_dataset(random.PRNGKey(1, "cpu"), n_seqs=3 * B,
+                                  seq_len=S, vocab=cfg.vocab_size)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            step, init = make_train_step(
+                model, optim.adamw(optim.warmup_cosine(1e-3, 1, 10)))
+            state = init(random.PRNGKey(0, "cpu"))
+            state = tree.map(lambda t: t.to(dev), state)
+            rows = []
+            for i in range(3):
+                batch = {k: v[i * B:(i + 1) * B].to(dev)
+                         for k, v in data.items()}
+                state, met = step(state, batch)
+                rows.append({k: v.item() for k, v in met.items()})
+            got[dev] = rows
+        worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                    for a, b in zip(got["cuda"], got["cpu"])
+                    for k in b if b[k] != 0 or a[k] != 0)
+        print(f"  {name} reduced: card "
+              f"{[(round(r['loss'], 5), round(r['grad_norm'], 5)) for r in got['cuda']]}"
+              f", CPU {[(round(r['loss'], 5), round(r['grad_norm'], 5)) for r in got['cpu']]}"
+              f" (loss, grad_norm); aux card {[r['aux'] for r in got['cuda']]}"
+              f"; largest relative difference {worst:.2e} (tol "
+              f"{TRAIN_CARD_CPU_RTOL})")
+        check(worst <= TRAIN_CARD_CPU_RTOL,
+              f"{name}: the card's train steps disagree with the CPU route's")
 
 
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
@@ -1431,8 +1847,8 @@ def fl_run(torch, counters, cfg, want_engine, want_launches, title):
     want = want_launches * rounds
     check(launches["bwo_evolve"] == want,
           f"bwo_evolve launched {launches['bwo_evolve']} times, expected {want}")
-    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
-          "the FL path ran attention or the scan")
+    check(all(n == 0 for k, n in launches.items() if k != "bwo_evolve"),
+          f"the FL path ran attention or the scan: {launches}")
     for log in result.logs:
         check(all(math.isfinite(s) for s in log.info["scores"]),
               f"non-finite score in round {log.round}: {log.info['scores']}")
@@ -1588,8 +2004,8 @@ def fused_phase(torch, counters, single_times=None):
     check(launches["bwo_evolve"] == replayed + engine.warmup_launches,
           f"bwo_evolve counted {launches['bwo_evolve']}, expected "
           f"{replayed} + {engine.warmup_launches}")
-    check(launches["flash_attention"] == 0 and launches["ssm_scan"] == 0,
-          "the FL path ran attention or the scan")
+    check(all(n == 0 for k, n in launches.items() if k != "bwo_evolve"),
+          f"the FL path ran attention or the scan: {launches}")
     uplink = exp.meter.total_uplink
     check(uplink == cfg.max_rounds * 9_861_328,
           f"uplink {uplink} != 10 x 9,861,328")
@@ -1744,14 +2160,19 @@ def fl_phases(torch, counters):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd as fa_bwd_kernel)
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
-    counters = (bwo_kernel, fa_kernel, ssm_kernel)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd as ssm_bwd_kernel
+    counters = (bwo_kernel, fa_kernel, ssm_kernel, fa_bwd_kernel,
+                ssm_bwd_kernel)
 
     # ---------------------------------------------------- 1. environment --
     print("== 1. environment")
@@ -1778,7 +2199,9 @@ def main() -> int:
                   lambda: fa_kernel.build(fa_kernel.SOURCE),
               "flash_attention, tensor cores and split-K":
                   lambda: fa_kernel.build(fa_kernel.HOPPER_SOURCE),
-              "ssm_scan": ssm_kernel.build}
+              "ssm_scan": ssm_kernel.build,
+              "flash_attention backward": fa_bwd_kernel.build,
+              "ssm_scan backward": ssm_bwd_kernel.build}
 
     def timed_build(fn):
         t = time.perf_counter()
@@ -1812,6 +2235,19 @@ def main() -> int:
     deepseek_phase(torch, counters, mem_rate, bf16_rate)
     moe_card_vs_cpu(torch)
 
+    # ------------------------------------------------ 17.-21. training --
+    t_train = time.perf_counter()
+    fa_bwd = flash_bwd_phase(torch, mem_rate, bf16_rate)
+    ssm_bwd = ssm_bwd_phase(torch, mem_rate, f32_rate, exp_rate)
+    cells = train_cells()
+    olmo_train, fa_bwd["train_step"] = train_phase(torch, counters,
+                                                   *cells["19"])
+    jamba_train, ssm_bwd["train_step"] = train_phase(torch, counters,
+                                                     *cells["20"])
+    train_card_vs_cpu(torch)
+    print(f"phases 17-21 took {time.perf_counter() - t_train:.1f} s; the "
+          f"script so far {time.perf_counter() - t_start:.1f} s")
+
     # --------------------------------------------------------- results --
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
@@ -1824,14 +2260,33 @@ def main() -> int:
                     "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "launches": (serve_launches + sum(jamba_routes.values())
-                     + moe_launches["flash_attention"]),
+                     + moe_launches["flash_attention"]
+                     + olmo_train["flash_attention"]
+                     + jamba_train["flash_attention"]),
         "route_launches": {"olmo-1b": olmo_routes,
                            "jamba without experts": jamba_routes,
-                           "jamba with experts": moe_routes}, **fa}, {
+                           "jamba with experts": moe_routes,
+                           "olmo-1b train step": fa_bwd["train_step"]["routes"],
+                           "jamba train step":
+                               ssm_bwd["train_step"]["routes"]}, **fa}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
-        "launches": jamba_launches + moe_launches["ssm_scan"], **ssm}]
+        "launches": (jamba_launches + moe_launches["ssm_scan"]
+                     + jamba_train["ssm_scan"]), **ssm}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "differentiates": "src/repro/models/attention.py:224 (the train "
+                          "step's blockwise_attention, differentiated by XLA)",
+        "launches": (olmo_train["flash_attention_bwd"]
+                     + jamba_train["flash_attention_bwd"]), **fa_bwd}, {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
+        "differentiates": "src/repro/models/ssm.py:98 (the train step's "
+                          "chunked associative scan, differentiated by XLA)",
+        "launches": jamba_train["ssm_scan_bwd"], **ssm_bwd}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

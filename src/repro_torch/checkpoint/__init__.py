@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.ckpt import (save_checkpoint, restore_checkpoint,
+                                         latest_step)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

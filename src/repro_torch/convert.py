@@ -4,7 +4,9 @@ genome BWO evolves.
 The port keeps the reference's layouts, so carrying a tree across is a
 copy: ``params_from_jax`` takes a nested dict of arrays (a JAX tree
 through ``np.asarray``) and ``params_to_numpy`` gives one back.
-``ravel_params`` matches ``jax.flatten_util.ravel_pytree``: leaves in
+``train_state_from_jax`` carries a train state (params, the optimizer's
+moments, the step) the same way.  ``ravel_params`` matches
+``jax.flatten_util.ravel_pytree``: leaves in
 sorted-key order (``b`` before ``w``), each row-major, concatenated.
 """
 from __future__ import annotations
@@ -43,6 +45,18 @@ def params_from_jax(tree_of_numpy, device) -> dict:
 
 def params_to_numpy(params) -> dict:
     return tree.map(_to_numpy, params)
+
+
+def train_state_from_jax(state, device) -> dict:
+    """The reference's train state ``{"params", "opt", "step"}`` (arrays,
+    or a tree of them through ``np.asarray``) as the port's, bit for bit on
+    ``device``: the optimizer's state (AdamW's ``m`` and ``v``, SGD's
+    ``mu`` or nothing) is a tree like the parameters, and the step a 0-dim
+    int32 tensor."""
+    return {"params": params_from_jax(state["params"], device),
+            "opt": params_from_jax(state["opt"], device),
+            "step": torch.as_tensor(np.array(state["step"]),
+                                    dtype=torch.int32, device=device)}
 
 
 def ravel_params(params) -> Tuple[torch.Tensor, Callable]:

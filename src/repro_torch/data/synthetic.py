@@ -1,9 +1,11 @@
 """Synthetic datasets, drawn from the same keys as the reference's, so a
-seed gives the same labels and the same images (within float32 rounding).
+seed gives the same labels and the same images (within float32 rounding),
+and the same token streams exactly.
 
 ``make_cifar_like`` builds a *learnable* 10-class 32x32x3 image problem:
 each class has a random smooth template; samples are the template plus
-pixel noise and random brightness.
+pixel noise and random brightness.  ``make_token_dataset`` draws Markov
+token streams for the language models' train step.
 """
 from __future__ import annotations
 
@@ -90,3 +92,36 @@ def mlp_task(hidden: int = 200, image_size: int = 32, channels: int = 3,
         return nll, acc
 
     return Task(init_params, loss_fn)
+
+
+def make_token_dataset(key, n_seqs: int, seq_len: int, vocab: int,
+                       order: int = 2):
+    """Synthetic Markov token streams (learnable LM data), on the key's
+    device: each token is, with probability 0.7, the preferred successor
+    ``pref[tok]`` of the one before, else uniform.  The reference draws
+    every step's keys in a scan; none depends on a token, so here every key
+    and every draw is made up front (threefry under ``vmap``) and only the
+    gather ``pref[tok]`` walks the steps.  Returns tokens and labels (the
+    next token, -1 at the end), (n_seqs, seq_len) int32."""
+    rk, rs = random.split(key)
+    pref = random.randint(rk, (vocab,), 0, vocab)
+    vmap = torch.func.vmap
+    seq_keys = random.split(rs, n_seqs)                       # (n, 2)
+    k0, kseq = vmap(random.split)(seq_keys).unbind(1)
+    t0 = vmap(lambda k: random.randint(k, (), 0, vocab))(k0)   # (n,)
+    steps = vmap(lambda k: random.split(k, seq_len))(kseq).reshape(-1, 2)
+    knext, kchoice = vmap(random.split)(steps).unbind(1)
+    rand = vmap(lambda k: random.randint(k, (), 0, vocab))(kchoice)
+    greedy = vmap(lambda k: random.uniform(k, ()))(knext) < torch.full(
+        (), 0.7, dtype=torch.float32, device=key.device)
+    rand = rand.reshape(n_seqs, seq_len)
+    greedy = greedy.reshape(n_seqs, seq_len)
+    toks = torch.empty((n_seqs, seq_len), dtype=torch.int32, device=key.device)
+    tok = t0
+    for t in range(seq_len):
+        tok = torch.where(greedy[:, t], pref[tok.long()], rand[:, t])
+        toks[:, t] = tok
+    labels = torch.cat([toks[:, 1:], torch.full((n_seqs, 1), -1,
+                                                dtype=torch.int32,
+                                                device=key.device)], dim=1)
+    return {"tokens": toks, "labels": labels}

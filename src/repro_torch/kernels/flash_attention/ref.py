@@ -9,7 +9,12 @@ valid lengths (decode against a cache).
 ``flash_attention_split_k_ref`` computes the same function the way the
 split-K decode kernel does: the cache cut into chunks of ``chunk`` keys
 (the wrapper's ``split_k_chunk``), one partial (m, l, acc) per chunk, then
-the merge."""
+the merge.
+
+``flash_attention_bwd_ref`` is the plain gradient that the backward kernel
+computes (dq, dk, dv from q, k, v, the output, its gradient and the rows'
+log-sum-exp, ``flash_attention_lse_ref``), for queries whose positions
+start at 0 against every key, as training calls it."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -19,16 +24,13 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0,
-                        kv_len: Union[None, int, torch.Tensor] = None):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
-    dtype."""
+def _scores(q, k, *, causal: bool, window: Optional[int], q_offset: int = 0,
+            kv_len: Union[None, int, torch.Tensor] = None):
+    """The scaled scores (B, H, Sq, Sk) in fp32 and the mask of the pairs
+    that count (broadcast against them)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    rep = H // KV
-    kr = k.repeat_interleave(rep, dim=2)
-    vr = v.repeat_interleave(rep, dim=2)
+    kr = k.repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * hd ** -0.5
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Sk, device=q.device)
@@ -44,10 +46,56 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
             mask = mask & (k_pos[None, :] < kv_len[:, None])[:, None, None]
         else:
             mask = mask & (k_pos < kv_len)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    return s, mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        kv_len: Union[None, int, torch.Tensor] = None):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
+    dtype."""
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset,
+                      kv_len=kv_len)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    vr = v.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
     return o.to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled scores over the keys it sees,
+    (B, H, Sq) fp32."""
+    s, mask = _scores(q, k, causal=causal, window=window)
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                            window: Optional[int] = None):
+    """The gradient of ``flash_attention_ref`` (``q_offset`` 0, every key
+    valid) at cotangent ``do``, from the output ``o`` and the log-sum-exp
+    ``lse`` (B, H, Sq): P = exp(s - lse), D = rowsum(do o), dS = P (do v^T
+    - D), dq = scale dS k, dk = scale dS^T q and dv = P^T do, summed over
+    the query heads of each KV head; fp32 math, each result in its input's
+    dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    s, mask = _scores(q, k, causal=causal, window=window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    do32 = do.float()
+    vr = v.repeat_interleave(rep, dim=2).float()
+    kr = k.repeat_interleave(rep, dim=2).float()
+    delta = (do32 * o.float()).sum(-1).permute(0, 2, 1)       # (B, H, Sq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dk = dk.reshape(B, Sk, KV, rep, hd).sum(3)
+    dv = dv.reshape(B, Sk, KV, rep, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _valid_lengths(kv_len, B: int, Sk: int, device) -> torch.Tensor:

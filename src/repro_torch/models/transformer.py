@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random, tree
 from repro_torch.configs.base import ArchConfig
@@ -187,9 +188,12 @@ class Model:
     def apply(self, params, batch: Dict[str, Any], *, mode: str,
               cache=None, cache_pos=None, window: Optional[int] = None):
         """Returns (logits, new_cache, aux_loss); logits in float32 for
-        every position, aux_loss the sum of the MoE layers' (0 without).  ``cache_pos`` (decode) is an int or a (B,) tensor.
-        The cache is written in place (see ``attention.gqa_apply`` and
-        ``ssm.mamba_apply``): each group's entries are views into it."""
+        every position, aux_loss the sum of the MoE layers' (0 without).
+        ``cache_pos`` (decode) is an int or a (B,) tensor.  In train mode
+        with grad enabled each group runs under activation checkpointing,
+        as the reference's.  The cache is written in place (see
+        ``attention.gqa_apply`` and ``ssm.mamba_apply``): each group's
+        entries are views into it."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -204,12 +208,7 @@ class Model:
             positions = torch.arange(S, device=dev)[None]
         x = x.to(cfg.param_dtype)
 
-        # the MoE layers' load-balance losses, summed in the reference's
-        # order (groups, then sublayers)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for g in range(cfg.num_groups):
-            gparams = tree.map(lambda a: a[g], params["groups"])
-            gcache = None if cache is None else tree.map(lambda a: a[g], cache)
+        def group_body(x, aux, gparams, gcache):
             for i in range(cfg.group_size):
                 x, _, a = _apply_sublayer(
                     gparams[f"sub{i}"], x, cfg=cfg, sub_idx=i, mode=mode,
@@ -218,6 +217,23 @@ class Model:
                     cache_pos=cache_pos, window=window)
                 if a is not None:
                     aux = aux + a
+            return x, aux
+
+        # the MoE layers' load-balance losses, summed in the reference's
+        # order (groups, then sublayers)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        remat = mode == "train" and torch.is_grad_enabled()
+        for g in range(cfg.num_groups):
+            gparams = tree.map(lambda a: a[g], params["groups"])
+            gcache = None if cache is None else tree.map(lambda a: a[g], cache)
+            if remat:
+                # the reference's jax.checkpoint(group_body): a group's
+                # activations are recomputed in the backward, not kept
+                x, aux = checkpoint(group_body, x, aux, gparams, gcache,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = group_body(x, aux, gparams, gcache)
 
         x = nn.norm_apply(cfg.norm, params["final_norm"], x)
         if cfg.tie_embeddings:

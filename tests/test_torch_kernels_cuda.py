@@ -15,9 +15,11 @@ from repro_torch import random as R, tree  # noqa: E402
 from repro_torch.kernels.bwo_evolve import bwo_evolve as kernel_mod  # noqa: E402
 from repro_torch.kernels.bwo_evolve import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention as fa_kernel, ops as fa_ops, ref as fa_ref)
+    flash_attention as fa_kernel, flash_attention_bwd as fa_bwd,
+    ops as fa_ops, ref as fa_ref)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_kernel)
+    ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_kernel,
+    ssm_scan_bwd as ssm_bwd)
 
 GRID = [(4, 128), (8, 100), (16, 1000), (6, 4097)]
 DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -550,3 +552,165 @@ def test_moe_layer_on_the_card_matches_the_cpu_route(S, dtype):
     tol = 1e-5 if dtype == "float32" else y.float().abs().max().item() * 2 ** -6
     torch.testing.assert_close(yc.cpu().float(), y.float(), rtol=0, atol=tol)
     torch.testing.assert_close(auxc.cpu(), aux, rtol=1e-5, atol=1e-6)
+
+
+# The backward kernels.  flash: B, S, H, KV, hd, causal, window (queries
+# from position 0 against every key, as training calls it): the
+# reference's kernel sweep, then OLMo-1B's and Jamba's train shapes.
+# Tolerance, of the largest entry of each gradient: float32 1e-4 (fp32
+# sums in another order than the plain version's, through exp); bf16 2^-7
+# (both round one fp32 result to bf16, a step of 2^-8 at the largest).
+FA_BWD_CASES = [
+    (2, 256, 4, 2, 64, True, None), (1, 512, 4, 4, 128, True, 128),
+    (2, 128, 8, 1, 32, False, None), (1, 300, 2, 2, 80, True, None),
+    (1, 256, 4, 4, 128, True, 64),
+    (4, 1024, 16, 16, 128, True, None), (4, 1024, 32, 8, 128, True, None),
+]
+FA_BWD_TOL = {"float32": (torch.float32, 1e-4),
+              "bfloat16": (torch.bfloat16, 2 ** -7)}
+
+
+def _close_to_largest(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", list(FA_BWD_TOL))
+def test_flash_attention_backward_kernel_matches_plain_version(
+        B, S, H, KV, hd, causal, window, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tdt, tol = FA_BWD_TOL[dtype]
+    q, k, v = _qkv(B, S, S, H, KV, hd, tdt, tdt, S + hd)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(hd)
+                     ).to("cuda", tdt)
+    kw = dict(causal=causal, window=window)
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    before = fa_bwd.launches
+    got = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_bwd.launches == before + 1
+    lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        _close_to_largest(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FA_BWD_TOL))
+def test_flash_attention_gradient_goes_through_both_kernels(dtype,
+                                                            monkeypatch):
+    """With inputs that require a gradient, ``ops.flash_attention`` runs the
+    forward kernel and its backward runs the backward kernel, never the
+    plain gradient; without, it launches the forward alone, as serving
+    does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tdt, tol = FA_BWD_TOL[dtype]
+    q, k, v = _qkv(2, 200, 200, 8, 2, 64, tdt, tdt, 41)
+
+    def refused(*a, **kw):
+        raise AssertionError("the plain gradient ran on the card")
+
+    monkeypatch.setattr(fa_ref, "flash_attention_bwd_ref", refused)
+    before = (fa_kernel.launches, fa_bwd.launches)
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, v, causal=True, window=50)
+    assert (fa_kernel.launches, fa_bwd.launches) == (before[0] + 1, before[1])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fa_ops.flash_attention(*leaves, causal=True, window=50)
+    do = torch.randn_like(o)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa_kernel.launches, fa_bwd.launches) == (before[0] + 2,
+                                                     before[1] + 1)
+    monkeypatch.undo()
+    lse = fa_ref.flash_attention_lse_ref(q, k, causal=True, window=50)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o.detach(), do, lse,
+                                          causal=True, window=50)
+    for g, w in zip(grads, want):
+        _close_to_largest(g, w, tol)
+
+
+# ssm_scan's backward: the forward's cases with and without h0, each with a
+# gradient of the last state and without.  Tolerance 1e-4 of each
+# gradient's largest entry (at least 1), as the forward's: exponentials
+# (ex2.approx) and sums (over N, over the channels by atomics) in another
+# order.
+SSM_BWD_CASES = [
+    (2, 128, 64, 16, False), (1, 64, 256, 8, True), (2, 96, 32, 16, False),
+    (1, 200, 48, 4, True), (3, 77, 40, 8, True), (2, 100, 33, 16, True),
+    (2, 3, 200, 16, False), (4, 1, 130, 16, True), (2, 256, 1024, 16, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,N,with_h0", SSM_BWD_CASES)
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssm_scan_backward_kernel_matches_plain_version(B, S, D, N, with_h0,
+                                                        with_dh):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(B, S, D, N, with_h0, S * 7 + D, mamba_A=N == 16)
+    g = torch.Generator().manual_seed(S + D)
+    dy = torch.randn(B, S, D, generator=g).to("cuda")
+    dh = torch.randn(B, D, N, generator=g).to("cuda") if with_dh else None
+    before = ssm_bwd.launches
+    got = ssm_bwd.ssm_scan_bwd_cuda(*args, dy, dh)
+    torch.cuda.synchronize()
+    assert ssm_bwd.launches == before + 1
+    want = ssm_ref.ssm_scan_bwd_ref(*args, dy, dh)
+    assert (got[5] is None) == (not with_h0)
+    for gg, w in zip(got, want):
+        if w is not None:
+            _close_to_largest(gg, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_gradient_goes_through_both_kernels(monkeypatch):
+    """With inputs that require a gradient, ``ops.ssm_scan`` runs the
+    forward kernel and its backward the backward kernel, never the plain
+    gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(2, 70, 96, 16, True, 43, mamba_A=True)
+
+    def refused(*a, **kw):
+        raise AssertionError("the plain gradient ran on the card")
+
+    monkeypatch.setattr(ssm_ref, "ssm_scan_bwd_ref", refused)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (ssm_kernel.launches, ssm_bwd.launches)
+    y, h = ssm_ops.ssm_scan(*leaves)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssm_kernel.launches, ssm_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    monkeypatch.undo()
+    want = ssm_ref.ssm_scan_bwd_ref(*args, dy)
+    for gg, w in zip(grads, want):
+        _close_to_largest(gg, w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,N,with_h0", [(4, 1024, 8192, 16, False),
+                                             (2, 77, 300, 8, True)])
+def test_ssm_scan_backward_kernel_is_deterministic(B, S, D, N, with_h0):
+    """Two launches on the same inputs give the same bits: the sums over
+    channel blocks and batch rows are taken in a fixed order, with no
+    atomics, so a train step reproduces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ssm_inputs(B, S, D, N, with_h0, 31, mamba_A=True)
+    g = torch.Generator().manual_seed(32)
+    dy = torch.randn(B, S, D, generator=g).to("cuda")
+    dh = torch.randn(B, D, N, generator=g).to("cuda") if with_h0 else None
+    first = ssm_bwd.ssm_scan_bwd_cuda(*args, dy, dh)
+    second = ssm_bwd.ssm_scan_bwd_cuda(*args, dy, dh)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)

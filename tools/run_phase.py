@@ -8,6 +8,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py seq [TREE]     # sequential FL rounds
     python3 tools/run_phase.py 3b             # gradient against float64
     python3 tools/run_phase.py 4c [TREE]      # fused rounds, CUDA graphs
+    python3 tools/run_phase.py 20 [TREE]      # a train step (or 19)
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -25,7 +26,10 @@ runs the tree's phase 4c: 10 full-width FedBWO rounds as two pipelined
 blocks of 5, each one CUDA graph replay, against 5 eager rounds from the
 same start, with the capture time, the amortized round, the peak memory,
 both drivers' sync fractions and the card's busy share (trees from this
-one on).
+one on).  ``19`` and ``20`` run the tree's training phase (OLMo-1B, or
+8-layer Jamba without experts): steps, launches, the step's parts, and
+the gradients through the kernels against the plain versions; run twice
+in two processes, they show whether a train step reproduces.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from pathlib import Path
 
 def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("7", "10", "seq", "3b", "4c"):
+    if phase not in ("7", "10", "seq", "3b", "4c", "19", "20"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -55,6 +59,15 @@ def main() -> int:
         _, times = cs.flash_phase(torch, mem, bf16)
     elif phase == "seq":
         times = sequential_rounds(torch)
+    elif phase in ("19", "20"):
+        from repro_torch.kernels.bwo_evolve import bwo_evolve
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_bwd)
+        from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+        _, times = cs.train_phase(
+            torch, (bwo_evolve, flash_attention, ssm_scan,
+                    flash_attention_bwd, ssm_scan_bwd),
+            *cs.train_cells()[phase])
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
