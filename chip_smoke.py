@@ -102,11 +102,14 @@ Phases, each printing its own lines; any failure exits non-zero:
     (8,992,814,080) and latent cache checked, the same split;
 16. serving the reduced MoE configurations (Jamba with experts,
     DeepSeek-V2, Arctic) on the card against the port's CPU route, greedy;
-17. ``flash_attention``'s backward kernel against its plain version
+17. ``flash_attention``'s backward kernels against their plain version
     (``flash_attention_bwd_ref``) on the card, at OLMo-1B's and Jamba's
-    train shapes and the reference's kernel sweep, float32 and bf16, with
-    the kernel's, the plain version's and SDPA's backward times and the
-    bound at the two train shapes;
+    train shapes, the reference's kernel sweep and ragged, windowed shapes,
+    float32 and bf16, each on the route ``flash_attention_bwd.route`` names
+    (bf16 at hd 64 and 128 on the tensor cores, the rest on the CUDA
+    cores); two launches at each train shape equal bit for bit; the
+    route's, the CUDA-core route's, the plain version's and SDPA's backward
+    times and the bound at the two train shapes;
 18. ``ssm_scan``'s backward kernel against ``ssm_scan_bwd_ref``, at the
     reference's scan cases with and without h0 and at Jamba's train shape,
     A drawn and as the mamba initialisation sets it, two launches at
@@ -117,7 +120,7 @@ Phases, each printing its own lines; any failure exits non-zero:
     adamw(warmup_cosine(3e-4, 10, 4)))`` on ``make_token_dataset``
     batches of 4 x 1024, a warm-up step and three timed ones, every
     launch counter set to 0 just before each step and read just after (32
-    flash forwards, all on the tensor cores, and 16 backwards), loss, aux
+    flash forwards and 16 backwards, all on the tensor cores), loss, aux
     and grad_norm finite, the step split into forward plus backward,
     clipping and the AdamW update, every parameter leaf's gradient
     non-zero, the peak memory, the tree counted (1,176,764,416), and one
@@ -126,7 +129,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     leaf's largest entry);
 20. the same for Jamba without experts at full width, depth cut to one
     8-layer period (7 mamba + 1 attention; 2,725,326,848 parameters): 14
-    scan forwards and 7 backwards, 2 flash forwards and 1 backward a step;
+    scan forwards and 7 backwards, 2 flash forwards and 1 backward a step
+    (on the tensor cores);
     the plain comparison at sequence 256 (``ssm_scan_ref``'s per-step
     autograd graph at 1024 does not fit beside the model);
 21. three train steps of reduced OLMo-1B, Jamba with its experts and
@@ -1004,10 +1008,13 @@ def moe_card_vs_cpu(torch):
 OLMO_TRAIN = (4, 1024, 16, 16, 128, True, None)
 JAMBA_TRAIN = (4, 1024, 32, 8, 128, True, None)
 FA_BWD_TIMED = (("olmo train", OLMO_TRAIN), ("jamba train", JAMBA_TRAIN))
+# ragged sequences (not a multiple of a tile), windows, rep 1 to 8
+FA_BWD_RAGGED = [(2, 200, 4, 4, 64, True, None), (1, 1000, 8, 1, 128, True, 256),
+                 (3, 77, 8, 2, 64, False, 32)]
 FA_BWD_SHAPES = [c + (dt,) for c in
                  [OLMO_TRAIN, JAMBA_TRAIN] + [(B, Sq, H, KV, hd, causal, w)
                                               for B, Sq, _, H, KV, hd, causal, w
-                                              in TEST_CASES]
+                                              in TEST_CASES] + FA_BWD_RAGGED
                  for dt in (BF16, F32)]
 FA_BWD_TOL = {F32: 1e-4, BF16: 2 ** -7}
 # ssm_scan's backward: the reference's scan cases with and without h0 (and a
@@ -1038,8 +1045,12 @@ def rel_to_largest(got, want):
 
 
 def flash_bwd_phase(torch, mem_rate, bf16_rate):
-    """Phase 17.  Returns the backward kernel's entry of the kernels line
-    (all but its launches)."""
+    """Phase 17.  Every shape on the route ``flash_attention_bwd.route``
+    names for it; two launches at each train shape give the same bits; at
+    the train shapes the route's kernels (the tensor cores) are timed beside
+    the plain version, SDPA's backward and the bound, and the CUDA-core
+    route beside them.  Returns the backward kernels' entry of the kernels
+    line (all but its launches)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
@@ -1056,7 +1067,12 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtypes[dt])
         kw = dict(causal=causal, window=window)
         o = fa_ops.flash_attention(q, k, v, **kw)
+        want_route = fa_bwd.route(q.dtype, hd)
+        before = dict(fa_bwd.route_launches)
         got = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        used = [r for r in before if fa_bwd.route_launches[r] != before[r]]
+        check(used == [want_route], f"the backward at {shape} took {used}, "
+              f"expected the {want_route} route")
         lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
         want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
@@ -1066,7 +1082,7 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
                   for g, w in zip(got, want))
               and all(math.isfinite(e) and e <= tol for e in errs))
         print(f"  B={B} S={S} H={H} KV={KV} hd={hd} causal={causal} "
-              f"window={window} {dt}: dq, dk, dv errors "
+              f"window={window} {dt}, {want_route}: dq, dk, dv errors "
               f"{', '.join(f'{e:.2e}' for e in errs)} of the largest entry "
               f"(tol {tol:.3g}) {'ok' if ok else 'FAILED'}")
         check(ok, f"flash_attention's backward disagrees at {shape}")
@@ -1074,6 +1090,22 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         if dt == BF16 and shape[:7] in (OLMO_TRAIN, JAMBA_TRAIN):
             inputs[shape[:7]] = (q, k, v, o, do, kw)
         del got, want, lse
+
+    for label, shape in FA_BWD_TIMED:
+        q, k, v, o, do, kw = inputs[shape]
+        again = [fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+                 for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*again))
+        print(f"  two launches at the {label} shape: "
+              f"{'the same bits' if same else 'DIFFERENT bits'}")
+        check(same, f"flash_attention's backward is not deterministic at "
+              f"the {label} shape")
+        del again
+
+    routed = fa_bwd.route
+
+    def cuda_core_route(*args, **kwargs):
+        return "cuda_core"
 
     shapes = {}
     for label, shape in FA_BWD_TIMED:
@@ -1102,6 +1134,22 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         shapes[label] = timed_entry(
             torch, lambda: fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw),
             plain, sdpa_bwd, nbytes, [(flops, bf16_rate)], mem_rate)
+        shapes[label]["route"] = fa_bwd.route(q.dtype, hd)
+        # the CUDA-core route (the only one before the tensor cores'), cold L2
+        scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        fa_bwd.route = cuda_core_route
+        try:
+            cc = time_ms(torch, lambda: fa_bwd.flash_attention_bwd_cuda(
+                q, k, v, o, do, **kw), reps=10, flush=scratch.zero_, spin=True)
+        finally:
+            fa_bwd.route = routed
+        del scratch
+        shapes[label]["cuda_core_ms"] = cc
+        print(f"    the cuda_core route: {cc:.4f} ms, "
+              f"{cc / shapes[label]['ms']:.2f} x the {shapes[label]['route']} "
+              f"route's; SDPA's backward is "
+              f"{shapes[label]['ms'] / shapes[label]['library_ms']:.2f} x "
+              f"faster than the route")
         del out, qt, kt, vt
     del inputs
     torch.cuda.empty_cache()
@@ -1228,6 +1276,7 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     from repro_torch import optim, random, tree
     from repro_torch.data import make_token_dataset
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
     from repro_torch.launch.steps import make_grad_fn, make_train_step
     from repro_torch.models.transformer import build_model
     print(f"== {title}")
@@ -1254,7 +1303,7 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
                               seq_len=S, vocab=cfg.vocab_size)
     batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()}
                for i in range(steps)]
-    step_s, launches, routes = [], None, None
+    step_s, launches, routes, bwd_routes = [], None, None, None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         reset_counts(counters)
@@ -1263,19 +1312,25 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got, got_routes = read_counts(counters), dict(fa_kernel.route_launches)
+        got_bwd = dict(fa_bwd.route_launches)
         vals = {k: v.item() for k, v in metrics.items()}
         print(f"  step {i}{' (warm-up)' if i == 0 else ''}: {dt * 1e3:.1f} ms  "
               f"loss {vals['loss']:.4f}  aux {vals['aux']:.4f}  grad_norm "
-              f"{vals['grad_norm']:.4f}; launches {got}")
+              f"{vals['grad_norm']:.4f}; launches {got}; backward routes "
+              f"{got_bwd}")
         check(all(math.isfinite(v) for v in vals.values()),
               f"non-finite metrics at step {i}: {vals}")
         check(got == want_launches, f"launches in step {i}: {got}, expected "
               f"{want_launches}")
         check(got_routes["split_k"] == got_routes["cuda_core"] == 0,
               f"the train step's attention left the tensor cores: {got_routes}")
+        check(got_bwd == {"tensor_core": want_launches["flash_attention_bwd"],
+                          "cuda_core": 0},
+              f"the train step's attention backward left the tensor cores: "
+              f"{got_bwd}")
         if i > 0:
             step_s.append(dt)
-        launches, routes = got, got_routes
+        launches, routes, bwd_routes = got, got_routes, got_bwd
     check(int(state["step"]) == steps, f"step count {int(state['step'])}")
 
     # the step's parts on the next batch, and every leaf's gradient
@@ -1331,6 +1386,7 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     return launches, {"step_ms": [t * 1e3 for t in step_s],
                       "parts_ms": {k: v * 1e3 for k, v in parts.items()},
                       "peak_gib": peak / 2**30, "routes": routes,
+                      "bwd_routes": bwd_routes,
                       "grad_vs_plain": {"max": ratios[worst], "leaf": worst,
                                         "median": statistics.median(ratios)}}
 
@@ -2200,7 +2256,10 @@ def main() -> int:
               "flash_attention, tensor cores and split-K":
                   lambda: fa_kernel.build(fa_kernel.HOPPER_SOURCE),
               "ssm_scan": ssm_kernel.build,
-              "flash_attention backward": fa_bwd_kernel.build,
+              "flash_attention backward, CUDA cores":
+                  lambda: fa_bwd_kernel.build(fa_bwd_kernel.SOURCE),
+              "flash_attention backward, tensor cores":
+                  lambda: fa_bwd_kernel.build(fa_bwd_kernel.HOPPER_SOURCE),
               "ssm_scan backward": ssm_bwd_kernel.build}
 
     def timed_build(fn):
@@ -2275,12 +2334,19 @@ def main() -> int:
         "launches": (jamba_launches + moe_launches["ssm_scan"]
                      + jamba_train["ssm_scan"]), **ssm}, {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
+        "sources": {
+            "tensor_core": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
+            "cuda_core": "src/repro_torch/csrc/flash_attention_bwd.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "differentiates": "src/repro/models/attention.py:224 (the train "
                           "step's blockwise_attention, differentiated by XLA)",
         "launches": (olmo_train["flash_attention_bwd"]
-                     + jamba_train["flash_attention_bwd"]), **fa_bwd}, {
+                     + jamba_train["flash_attention_bwd"]),
+        "route_launches": {
+            "olmo-1b train step": fa_bwd["train_step"]["bwd_routes"],
+            "jamba train step": ssm_bwd["train_step"]["bwd_routes"]},
+        **fa_bwd}, {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",

@@ -1,16 +1,24 @@
-"""The gradient of flash attention (GQA, causal, sliding window) as a
-hand-written CUDA kernel for Hopper.
+"""The gradient of flash attention (GQA, causal, sliding window) as
+hand-written CUDA kernels for Hopper, on two routes.
 
 The backward of ``ops.flash_attention`` on a CUDA tensor: dq, dk and dv
 from q, k, v, the forward's output and its gradient, for queries whose
-positions start at 0 against every key (training).  The source, with its
-bound and design, is ``repro_torch/csrc/flash_attention_bwd.cu``: two
-passes on the CUDA cores, which recompute the rows' log-sum-exp rather
-than have the forward write it.  The kernel is compiled with ``nvcc`` at
+positions start at 0 against every key (training).  ``route`` picks the
+route from the type, the head dim and the operands' alignment:
+
+- ``tensor_core``: bf16, hd 64 or 128, every operand 16-byte aligned (TMA):
+  wgmma and TMA, ``repro_torch/csrc/flash_attention_bwd_hopper.cu``;
+- ``cuda_core``: everything else the kernels take (float32, hd 32 or 80):
+  fp32 on the CUDA cores, ``repro_torch/csrc/flash_attention_bwd.cu``.
+
+Both split the gradient into a dq pass and a dk/dv pass and recompute the
+rows' log-sum-exp rather than have the forward write it; each source
+states its bound and design.  The kernels are compiled with ``nvcc`` at
 first use (never at import) by ``repro_torch.kernels.nvcc`` and loaded
 with ``ctypes``.
 
-``launches`` counts every call that launched the kernel's passes.
+``launches`` counts every call that launched a route's kernels and
+``route_launches`` the calls of each route.
 """
 from __future__ import annotations
 
@@ -21,40 +29,62 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,
-                                                                 MAX_BATCH)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS, HOPPER_HEAD_DIMS, MAX_BATCH)
 
 SOURCE = nvcc.SOURCE_DIR / "flash_attention_bwd.cu"
+HOPPER_SOURCE = nvcc.SOURCE_DIR / "flash_attention_bwd_hopper.cu"
 DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("tensor_core", "cuda_core")
+TC_QUERY_TILE = 128               # the tensor-core dq kernel's query rows
 
 launches = 0
-_lib = None
+route_launches = dict.fromkeys(ROUTES, 0)
+_lib = {}                         # {route: its entry point}, at first use
 
 
-def build() -> Path:
-    """Compile the kernel unless this source's library is already built;
-    returns the library's path."""
-    return nvcc.build(SOURCE)
+def route(dtype: torch.dtype, hd: int, *, aligned: bool = True) -> str:
+    """The route a call takes: "tensor_core" or "cuda_core".  ``aligned``:
+    every operand's base lies on 16 bytes (TMA's rule; the operands are
+    contiguous, so their strides do).  Raises on a head dim or type no
+    kernel takes."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernels take {HEAD_DIMS}")
+    if dtype not in DTYPES:
+        raise TypeError(f"the backward takes {DTYPES}, got {dtype}")
+    if dtype == torch.bfloat16 and hd in HOPPER_HEAD_DIMS and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.flash_attention_bwd
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (SOURCE or HOPPER_SOURCE) unless its library is
+    already built; returns the library's path."""
+    return nvcc.build(source)
+
+
+def _load(which: str):
+    if which not in _lib:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, i32, ptr]
+        if which == "tensor_core":
+            lib = ctypes.CDLL(str(build(HOPPER_SOURCE)))
+            fn = lib.flash_attention_tc_bwd
+            fn.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr]
+        else:
+            lib = ctypes.CDLL(str(build(SOURCE)))
+            fn = lib.flash_attention_bwd
+            fn.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, i32, ptr]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _lib[which] = fn
+    return _lib[which]
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
                              window: Optional[int] = None):
-    """Launch the backward on the current stream.  q, o, do (B, Sq, H, hd);
-    k, v (B, Sk, KV, hd) with H a multiple of KV; all contiguous, of one
-    type (float32 or bfloat16), on one card.  Returns (dq, dk, dv) in that
-    type."""
+    """Launch the route's backward on the current stream.  q, o, do (B,
+    Sq, H, hd); k, v (B, Sk, KV, hd) with H a multiple of KV; all
+    contiguous, of one type (float32 or bfloat16), on one card.  Returns
+    (dq, dk, dv) in that type."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
@@ -66,10 +96,6 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
                          f"pair: same B and hd, H a multiple of KV")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd}: the kernel takes {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"the backward takes {DTYPES}, got {q.dtype}")
     if B > MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the grid's {MAX_BATCH}")
     if window is not None and window < 1:
@@ -84,18 +110,31 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"be q's shape {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    which = route(q.dtype, hd, aligned=aligned)
     if B == 0 or Sq == 0 or H == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
-    tensors = (q, k, v, o, do, dq, dk, dv)
-    vec = all(t.data_ptr() % 16 == 0 for t in tensors)
+    masks = (int(causal), 0 if window is None else int(window))
+    fn = _load(which)
+    if which == "tensor_core":
+        # the rows' lse and D, padded to whole query tiles
+        pad = -(-Sq // TC_QUERY_TILE) * TC_QUERY_TILE
+        stats = torch.empty((2, B, H, pad), dtype=torch.float32,
+                            device=q.device)
+        args = (*(t.data_ptr() for t in tensors), stats.data_ptr(), B, Sq,
+                Sk, H, KV, hd, *masks, float(hd ** -0.5))
+    else:
+        stats = torch.empty((2, B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+        args = (*(t.data_ptr() for t in tensors), stats[0].data_ptr(),
+                stats[1].data_ptr(), int(q.dtype == torch.bfloat16), B, Sq,
+                Sk, H, KV, hd, *masks, float(hd ** -0.5), int(aligned))
     with torch.cuda.device(q.device):
-        err = _load().flash_attention_bwd(
-            *(t.data_ptr() for t in tensors), stats[0].data_ptr(),
-            stats[1].data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Sk,
-            H, KV, hd, int(causal), 0 if window is None else int(window),
-            float(hd ** -0.5), int(vec), torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: error {err}")
+        raise RuntimeError(f"flash_attention_bwd launch failed on the "
+                           f"{which} route: error {err}")
     launches += 1
+    route_launches[which] += 1
     return dq, dk, dv

@@ -2,10 +2,11 @@
 Hopper.
 
 The backward of ``ops.ssm_scan`` on a CUDA tensor; the source, with its
-bound and design, is ``repro_torch/csrc/ssm_scan_bwd.cu``: a pass that
-stores the state every few steps, then the steps in reverse, each tile
-recomputed from its stored state, then the sums over channel blocks in a
-fixed order (no atomics: the same bits on every run).  The kernel is
+bound and design, is ``repro_torch/csrc/ssm_scan_bwd.cu``: four lanes a
+channel, a pass that stores the state every few steps, then the steps in
+reverse, each tile's states recomputed from its stored state into
+registers, then the sums over channel blocks in a fixed order (no
+atomics: the same bits on every run).  The kernel is
 compiled with ``nvcc`` at first use (never at import) by
 ``repro_torch.kernels.nvcc`` and loaded with ``ctypes``.
 

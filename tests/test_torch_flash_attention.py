@@ -165,6 +165,38 @@ def test_route_raises_on_what_no_kernel_takes(qdt, kvdt, hd, err):
         fk.route(qdt, kvdt, hd, 1)
 
 
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (BF, 128, True, "tensor_core"), (BF, 64, True, "tensor_core"),
+    (BF, 128, False, "cuda_core"),              # a base TMA cannot read
+    (BF, 32, True, "cuda_core"), (BF, 80, True, "cuda_core"),
+    (F32T, 128, True, "cuda_core"), (F32T, 64, True, "cuda_core"),
+    (F32T, 32, False, "cuda_core"),
+])
+def test_backward_route_by_type_head_dim_and_alignment(dtype, hd, aligned,
+                                                       want):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fb
+    assert fb.route(dtype, hd, aligned=aligned) == want
+
+
+@pytest.mark.parametrize("dtype,hd,err", [
+    (BF, 96, ValueError), (F32T, 256, ValueError),
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+])
+def test_backward_route_raises_on_what_no_kernel_takes(dtype, hd, err):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fb
+    with pytest.raises(err):
+        fb.route(dtype, hd)
+
+
+def test_backward_wrapper_takes_cuda_tensors_only():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fb
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.flash_attention_bwd_cuda(q, q, q, q, q)
+    assert fb.launches == 0 and fb.route_launches == {
+        "tensor_core": 0, "cuda_core": 0}
+
+
 H100_SMS = 132
 
 

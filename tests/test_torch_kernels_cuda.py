@@ -635,6 +635,82 @@ def test_flash_attention_gradient_goes_through_both_kernels(dtype,
         _close_to_largest(g, w, tol)
 
 
+# The tensor-core route of the backward (bf16, hd 64 and 128): ragged
+# sequences (not a multiple of the 64- and 128-row tiles), windows, causal
+# or not, rep 1, 4 and 8, B 1 to 4.  B, S, H, KV, hd, causal, window.
+FA_BWD_TC_CASES = [
+    (1, 200, 4, 4, 64, True, None), (2, 1000, 8, 2, 128, True, None),
+    (3, 77, 8, 1, 64, False, None), (4, 200, 4, 1, 128, True, 50),
+    (2, 333, 8, 8, 128, False, 100), (1, 1000, 16, 2, 64, True, 300),
+    (2, 64, 4, 4, 128, True, None), (1, 129, 8, 2, 64, True, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FA_BWD_TC_CASES)
+def test_flash_attention_backward_tensor_core_route(B, S, H, KV, hd, causal,
+                                                    window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _, tol = FA_BWD_TOL["bfloat16"]
+    q, k, v = _qkv(B, S, S, H, KV, hd, torch.bfloat16, torch.bfloat16,
+                   S * 7 + H + hd)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(S)
+                     ).to("cuda", torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    before = dict(fa_bwd.route_launches)
+    got = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_bwd.route_launches == {
+        "tensor_core": before["tensor_core"] + 1,
+        "cuda_core": before["cuda_core"]}
+    lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        _close_to_largest(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [
+    ("bfloat16", 128, "tensor_core"), ("bfloat16", 64, "tensor_core"),
+    ("bfloat16", 80, "cuda_core"), ("float32", 128, "cuda_core")])
+def test_flash_attention_backward_routes_by_type_and_head_dim(dtype, hd,
+                                                              route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tdt, _ = FA_BWD_TOL[dtype]
+    q, k, v = _qkv(2, 96, 96, 4, 2, hd, tdt, tdt, 5)
+    o = fa_ops.flash_attention(q, k, v)
+    before = dict(fa_bwd.route_launches)
+    fa_bwd.flash_attention_bwd_cuda(q, k, v, o, torch.ones_like(o))
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fa_bwd.route_launches.items()} == {
+        r: int(r == route) for r in fa_bwd.ROUTES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (4, 1024, 32, 8, 128, True, None), (2, 300, 8, 2, 64, True, 100),
+    (2, 130, 4, 4, 80, True, None)])
+def test_flash_attention_backward_kernel_is_deterministic(B, S, H, KV, hd,
+                                                          causal, window):
+    """Two launches on the same inputs give the same bits on either route:
+    the sums over a KV head's query heads stay inside one block and no
+    kernel uses atomics, so a train step reproduces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(B, S, S, H, KV, hd, torch.bfloat16, torch.bfloat16, 3)
+    kw = dict(causal=causal, window=window)
+    o = fa_ops.flash_attention(q, k, v, **kw)
+    do = torch.randn_like(o)
+    first = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    second = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 # ssm_scan's backward: the forward's cases with and without h0, each with a
 # gradient of the last state and without.  Tolerance 1e-4 of each
 # gradient's largest entry (at least 1), as the forward's: exponentials

@@ -9,6 +9,8 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 3b             # gradient against float64
     python3 tools/run_phase.py 4c [TREE]      # fused rounds, CUDA graphs
     python3 tools/run_phase.py 20 [TREE]      # a train step (or 19)
+    python3 tools/run_phase.py 17 [TREE]      # flash_attention's backward
+    python3 tools/run_phase.py 18 [TREE]      # ssm_scan's backward
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -29,7 +31,11 @@ both drivers' sync fractions and the card's busy share (trees from this
 one on).  ``19`` and ``20`` run the tree's training phase (OLMo-1B, or
 8-layer Jamba without experts): steps, launches, the step's parts, and
 the gradients through the kernels against the plain versions; run twice
-in two processes, they show whether a train step reproduces.
+in two processes, they show whether a train step reproduces.  ``17`` and
+``18`` run the tree's backward-kernel phases: each checked against its
+plain version, then timed at the train shapes (flash on its route, with
+SDPA's backward beside it), so a parent's backward kernels and this
+tree's can be timed in one call (trees whose ``chip_smoke.py`` has them).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from pathlib import Path
 
 def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("7", "10", "seq", "3b", "4c", "19", "20"):
+    if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19", "20"):
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -59,6 +65,10 @@ def main() -> int:
         _, times = cs.flash_phase(torch, mem, bf16)
     elif phase == "seq":
         times = sequential_rounds(torch)
+    elif phase == "17":
+        times = cs.flash_bwd_phase(torch, mem, bf16)["shapes"]
+    elif phase == "18":
+        times = cs.ssm_bwd_phase(torch, mem, f32, exp)["shapes"]
     elif phase in ("19", "20"):
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import (
