@@ -135,12 +135,47 @@ Phases, each printing its own lines; any failure exits non-zero:
     autograd graph at 1024 does not fit beside the model);
 21. three train steps of reduced OLMo-1B, Jamba with its experts and
     DeepSeek-V2 (float32) on the card against the port's CPU route, from
-    one state: losses, aux and grad norms within 1e-3 relative.
+    one state: losses, aux and grad norms within 1e-3 relative;
+22. ``flash_attention`` at the encoder-decoder's and the vision model's
+    shapes, each against its plain version on its route and timed beside
+    SDPA and the bound: Whisper-medium's encoder (4 x 1500 frames, 16 heads
+    on 16, hd 64, bidirectional), its cross-attention at prefill (32
+    queries on 1500 keys) and at decode (1 on the 1500-frame cross cache),
+    LLaVA-NeXT's prefill (2880 image rows + 32 text, 32 on 8, hd 128,
+    causal) and decode (a 2944-position cache, kv_len 2913);
+23. ``flash_attention``'s backward where queries and keys differ in
+    number, both routes, phase 17's tolerances: Whisper's cross-attention
+    train shape (4 x 448 queries on 1500 keys) and its encoder (1500 x
+    1500), fewer and more queries than keys, causal or not, a window; two
+    launches at the timed shapes equal bit for bit;
+24. serving Whisper-medium at full width and depth (``serve(get_arch(
+    "whisper-medium"), batch=4, prompt_len=32, gen=32)``, 1500 zero encoder
+    frames): 72 tensor-core flash calls at prefill (24 encoder layers, 24
+    decoder self- and 24 cross-attentions), 1,488 split-K (31 steps x 48),
+    none on the CUDA cores; the tree counted on the meta device; then
+    Whisper-medium reduced served on the card against the CPU route;
+25. training Whisper-medium at full width and depth on 4 x 448 tokens and
+    1500 encoder frames drawn from the seed, as phases 19-20 (120 flash
+    forwards and 72 backwards a step, all on the tensor cores; the key
+    biases, whose gradient is 0 in exact arithmetic, held to the tree's
+    largest gradient entry); 25b. reduced Whisper-medium and LLaVA-NeXT
+    train steps on the card against the CPU route;
+26. serving LLaVA-NeXT-Mistral-7B at full width and depth (2880 zero image
+    rows, prompt 32, 32 tokens): 32 tensor-core and 992 split-K calls;
+    then LLaVA-NeXT reduced on the card against the CPU route;
+27. the int8 KV cache at OLMo-1B full width through the model API
+    (``cache_init(4, 1056, quantized=True)``, prefill 1024, 32 decode
+    steps) against the bf16 cache on the same weights and tokens: the
+    reference's int8 tolerance in units of the logits' RMS, both caches'
+    bytes and decode ms a step.
+Phases 22-27 each print their seconds and the card's name and power limit
+(``python3 tools/run_phase.py 22,...,27`` runs any of them alone).
 
-It then prints one JSON line describing every ported kernel (``launches``
-summed over the paths that run it, serving and one train step of each
-model, flash's per path in ``route_launches``), the backward kernels
-included, and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+It then prints a JSON line of the new paths' numbers, one JSON line
+describing every ported kernel (``launches`` summed over the paths that
+run it, serving and one train step of each model, flash's per path in
+``route_launches``), the backward kernels included, and as the last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it fails and prints no
 result.
 """
@@ -198,6 +233,29 @@ FA_SHAPES = ([OLMO_PREFILL, OLMO_DECODE, JAMBA_ATTN_PREFILL, JAMBA_ATTN_DECODE]
              + [(4, 1, 1056, 16, 16, 128, True, 128, 1039, None, BF16, BF16),
                 (2, 1, 24, 4, 4, 64, False, None, 0, 17, F32, BF16)])
 FA_TOL = {F32: 2e-5, BF16: 3e-2}
+# bf16 outputs are also held to their own size, since the absolute 3e-2 is
+# about a typical entry where a row spreads over ~1500 keys (|o| ~ 0.03):
+# each query row's largest error within two bf16 steps of the row's largest
+# entry (rounding one fp32 result to bf16 both ways differs by one), and
+# the error's RMS over the output within 2^-7 of the output's RMS.
+FA_ROW_TOL, FA_RMS_TOL = 2 ** -6, 2 ** -7
+# Phase 22: the shapes of the encoder-decoder and vision paths, batch 4,
+# bf16.  Whisper-medium (16 heads on 16, hd 64): its encoder (1500 frames,
+# no multiple of the 128-row tile, bidirectional), cross-attention at
+# prefill (a 32-token prompt against the 1500 frames) and at decode (the
+# cross cache, no kv_len); LLaVA-NeXT-Mistral-7B (32 on 8, hd 128): prefill
+# of 2880 image rows and 32 text tokens, decode over a 2944-position cache.
+FA_NEW_TIMED = (
+    ("whisper encoder", (4, 1500, 1500, 16, 16, 64, False, None, 0, None,
+                         BF16, BF16)),
+    ("whisper cross prefill", (4, 32, 1500, 16, 16, 64, False, None, 0, None,
+                               BF16, BF16)),
+    ("whisper cross decode", (4, 1, 1500, 16, 16, 64, False, None, 0, None,
+                              BF16, BF16)),
+    ("llava prefill", (4, 2912, 2912, 32, 8, 128, True, None, 0, None,
+                       BF16, BF16)),
+    ("llava decode", (4, 1, 2944, 32, 8, 128, False, None, 0, 2913,
+                      BF16, BF16)))
 
 # ssm_scan checks: B, S, D, N, with h0.  The reference's test cases
 # (tests/test_kernels.py), each with and without h0, one decode step, and
@@ -223,7 +281,7 @@ def valid_pairs(Sq, Sk, causal, window, q_offset, kv_len):
     import torch
     q = q_offset + torch.arange(Sq)[:, None]
     k = torch.arange(Sk)[None, :]
-    keep = k < (Sk if kv_len is None else kv_len)
+    keep = (k < (Sk if kv_len is None else kv_len)).expand(Sq, Sk)
     if causal:
         keep = keep & (k <= q)
     if window is not None:
@@ -338,17 +396,34 @@ def timer_check(torch, fa_kernel, route, kernel, sdpa):
         f"{name} {a:.4f} / {b:.4f}" for name, (a, b) in got.items()))
 
 
-def flash_phase(torch, mem_rate, bf16_rate):
-    """Phase 7.  Returns the kernel's entry of the kernels line (all but
-    its launches) and its times at the FA_TIMED shapes, by label."""
+def size_errors(got, want):
+    """The worst query row's largest error over the row's largest entry,
+    and the error's RMS over the output's (last axis: a row's entries)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    row = (err.amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+    rms = (err.pow(2).mean().sqrt()
+           / want.pow(2).mean().sqrt().clamp_min(1e-30)).item()
+    return row, rms
+
+
+def flash_phase(torch, mem_rate, bf16_rate,
+                title="7. flash_attention against its plain version on the "
+                      "card", all_shapes=FA_SHAPES, timed_shapes=FA_TIMED,
+                seed=7):
+    """Phase 7 (and 22 at the new paths' shapes): every shape of
+    ``all_shapes`` against the plain version on its route, then the
+    ``timed_shapes`` timed, each with the timer check.  Returns the
+    kernel's entry of the kernels line (all but its launches) and its
+    times at the timed shapes, by label."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
-    print("== 7. flash_attention against its plain version on the card")
+    print(f"== {title}")
     dtypes = {F32: torch.float32, BF16: torch.bfloat16}
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    inputs, max_err = {}, 0.0
-    for shape in FA_SHAPES:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    inputs, sizes, max_err = {}, {}, 0.0
+    for shape in all_shapes:
         B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len, qdt, kvdt = shape
         q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[qdt])
         k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
@@ -365,10 +440,16 @@ def flash_phase(torch, mem_rate, bf16_rate):
                 if fa_kernel.route_launches[r] != before[r]]
         ok = (got.dtype == q.dtype and got.shape == q.shape and took == [route]
               and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+        own = ""
+        if qdt == BF16:
+            row, rms = sizes[shape] = size_errors(got, want)
+            ok = ok and row <= FA_ROW_TOL and rms <= FA_RMS_TOL
+            own = (f"; worst row {row:.3e} of its largest entry (tol 2^-6), "
+                   f"RMS {rms:.3e} of the output's (tol 2^-7)")
         print(f"  B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
               f"window={window} q_offset={q_offset} kv_len={kv_len} q {qdt} "
-              f"kv {kvdt}, route {took}: max_abs_err {err:.3e} (tol {tol}) "
-              f"{'ok' if ok else 'FAILED'}")
+              f"kv {kvdt}, route {took}: max_abs_err {err:.3e} (tol {tol})"
+              f"{own} {'ok' if ok else 'FAILED'}")
         check(ok and math.isfinite(err), f"flash_attention disagrees at {shape} "
               f"or left its route {route}")
         max_err = max(max_err, err)
@@ -377,7 +458,7 @@ def flash_phase(torch, mem_rate, bf16_rate):
     # times at the serving paths' shapes, against the bound and two
     # yardsticks: the plain version and scaled_dot_product_attention
     times, shapes = {}, {}
-    for label, shape in FA_TIMED:
+    for label, shape in timed_shapes:
         B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = shape[:10]
         q, k, v, kw = inputs[shape]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -402,13 +483,15 @@ def flash_phase(torch, mem_rate, bf16_rate):
             lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
             nbytes, [(flops, bf16_rate)], mem_rate, clean=Sq == 1)
         timed["route"] = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
+        if shape in sizes:
+            timed["row_err"], timed["rms_err"] = sizes[shape]
         times[label] = timed["ms"]
         shapes[label] = timed
         timer_check(torch, fa_kernel, timed["route"],
                     lambda: fa_ops.flash_attention(q, k, v, **kw), sdpa)
     del inputs
     torch.cuda.empty_cache()
-    first = shapes[FA_TIMED[0][0]]
+    first = shapes[timed_shapes[0][0]]
     entry = {"max_abs_err": max_err,
              **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")},
@@ -442,14 +525,17 @@ def tree_size(tree, params):
             sum(t.numel() * t.element_size() for t in leaves))
 
 
-def serve_checked(torch, counters, cfg, want_launches, want_routes, where):
-    """One full-width ``serve()`` (batch 4, prompt 1024, 32 tokens,
+def serve_checked(torch, counters, cfg, want_launches, want_routes, where,
+                  P=1024):
+    """One full-width ``serve()`` (batch 4, prompt ``P``, 32 tokens,
     temperature 1) with every launch counter set to 0 just before and read
     just after: the launches and routes checked, the tokens in range and
-    the logits finite.  Returns the launches and flash's routes."""
+    the logits finite.  Returns the launches, flash's routes and the
+    serving numbers (init s, prefill ms, decode ms a step, tokens/s, peak
+    GiB)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.launch.serve import serve
-    B, P, G = 4, 1024, 32
+    B, G = 4, 32
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
@@ -474,9 +560,12 @@ def serve_checked(torch, counters, cfg, want_launches, want_routes, where):
           f"tokens out of range or misshapen: {tuple(toks.shape)}")
     check(res.logits.shape == (B, cfg.vocab_size)
           and bool(torch.isfinite(res.logits).all()), "non-finite logits")
+    numbers = {"init_s": res.init_s, "prefill_ms": res.prefill_ms,
+               "decode_ms_per_step": res.decode_ms_per_step,
+               "tokens_per_s": res.tokens_per_s, "peak_gib": peak / 2**30}
     del res
     torch.cuda.empty_cache()
-    return launches, routes
+    return launches, routes, numbers
 
 
 def step_split(torch, model, params, B, P, G):
@@ -517,7 +606,7 @@ def serve_phase(torch, counters, decode_kernel_ms):
     B, P, G = 4, 1024, 32
     want = cfg.num_layers * (1 + (G - 1))
     print(f"  {cfg.num_params():,} parameters")
-    launches, routes = serve_checked(
+    launches, routes, _ = serve_checked(
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": want, "ssm_scan": 0,
          "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
@@ -683,7 +772,7 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
     B, P, G = 4, 1024, 32
     n_mamba = cfg.block_pattern.count("mamba") * cfg.num_groups
     n_attn = cfg.num_layers - n_mamba
-    launches, routes = serve_checked(
+    launches, routes, _ = serve_checked(
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
          "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
@@ -865,7 +954,7 @@ def jamba_moe_phase(torch, counters, ssm_times, fa_times, mem_rate, bf16_rate):
     B, P, G = 4, 1024, 32
     n_mamba = cfg.block_pattern.count("mamba") * cfg.num_groups
     n_attn = cfg.num_layers - n_mamba
-    launches, routes = serve_checked(
+    launches, routes, _ = serve_checked(
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
          "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
@@ -998,24 +1087,40 @@ def moe_card_vs_cpu(torch):
               f"{min(margins['cuda']):.2e}, CPU {min(margins['cpu']):.2e}")
 
 
-# The backward kernels.  flash: B, S, H, KV, hd, causal, window, dtype
+# The backward kernels.  flash: B, Sq, Sk, H, KV, hd, causal, window, dtype
 # (queries from position 0 against every key, as training calls it): the
 # train shapes of OLMo-1B and Jamba, and the reference's kernel sweep,
 # each in float32 and bf16.  Tolerance, of each gradient's largest entry:
 # float32 1e-4 (fp32 sums in another order than the plain version's, through
 # exp); bf16 2^-7 (both round one fp32 result to bf16, a step of 2^-8 at
 # the largest).
-OLMO_TRAIN = (4, 1024, 16, 16, 128, True, None)
-JAMBA_TRAIN = (4, 1024, 32, 8, 128, True, None)
+OLMO_TRAIN = (4, 1024, 1024, 16, 16, 128, True, None)
+JAMBA_TRAIN = (4, 1024, 1024, 32, 8, 128, True, None)
 FA_BWD_TIMED = (("olmo train", OLMO_TRAIN), ("jamba train", JAMBA_TRAIN))
 # ragged sequences (not a multiple of a tile), windows, rep 1 to 8
-FA_BWD_RAGGED = [(2, 200, 4, 4, 64, True, None), (1, 1000, 8, 1, 128, True, 256),
-                 (3, 77, 8, 2, 64, False, 32)]
+FA_BWD_RAGGED = [(2, 200, 200, 4, 4, 64, True, None),
+                 (1, 1000, 1000, 8, 1, 128, True, 256),
+                 (3, 77, 77, 8, 2, 64, False, 32)]
 FA_BWD_SHAPES = [c + (dt,) for c in
-                 [OLMO_TRAIN, JAMBA_TRAIN] + [(B, Sq, H, KV, hd, causal, w)
-                                              for B, Sq, _, H, KV, hd, causal, w
-                                              in TEST_CASES] + FA_BWD_RAGGED
-                 for dt in (BF16, F32)]
+                 [OLMO_TRAIN, JAMBA_TRAIN] + [c[:8] for c in TEST_CASES]
+                 + FA_BWD_RAGGED for dt in (BF16, F32)]
+# Phase 23, where queries and keys differ in number: Whisper-medium's
+# cross-attention at its train shape (448 decoder tokens, the model's
+# max_target_positions, on 1500 encoder frames) and its encoder (1500 x
+# 1500, bidirectional); fewer and more queries than keys, causal or not,
+# rep 1 to 4, a window.
+WHISPER_CROSS_TRAIN = (4, 448, 1500, 16, 16, 64, False, None)
+WHISPER_ENC_TRAIN = (4, 1500, 1500, 16, 16, 64, False, None)
+FA_BWD_SQ_SK_TIMED = (("whisper cross train", WHISPER_CROSS_TRAIN),
+                      ("whisper encoder train", WHISPER_ENC_TRAIN))
+FA_BWD_SQ_SK_SHAPES = [c + (dt,) for c in
+                       [WHISPER_CROSS_TRAIN, WHISPER_ENC_TRAIN,
+                        (2, 200, 333, 8, 2, 128, True, None),
+                        (2, 333, 200, 4, 4, 64, True, None),
+                        (3, 77, 1000, 8, 2, 128, False, None),
+                        (1, 1000, 77, 8, 1, 64, False, None),
+                        (2, 300, 500, 4, 1, 64, True, 100)]
+                       for dt in (BF16, F32)]
 FA_BWD_TOL = {F32: 1e-4, BF16: 2 ** -7}
 # ssm_scan's backward: the reference's scan cases with and without h0 (and a
 # last-state gradient with h0), then Jamba's train shape; tolerance 1e-4 of
@@ -1044,56 +1149,60 @@ def rel_to_largest(got, want):
             / max(1.0, want.abs().max().item()))
 
 
-def flash_bwd_phase(torch, mem_rate, bf16_rate):
-    """Phase 17.  Every shape on the route ``flash_attention_bwd.route``
-    names for it; two launches at each train shape give the same bits; at
-    the train shapes the route's kernels (the tensor cores) are timed beside
-    the plain version, SDPA's backward and the bound, and the CUDA-core
-    route beside them.  Returns the backward kernels' entry of the kernels
-    line (all but its launches)."""
+def flash_bwd_phase(torch, mem_rate, bf16_rate,
+                    title="17. flash_attention backward against its plain "
+                          "version on the card",
+                    all_shapes=FA_BWD_SHAPES, timed_shapes=FA_BWD_TIMED,
+                    seed=17):
+    """Phase 17 (and 23 where queries and keys differ in number).  Every
+    shape of ``all_shapes`` on the route ``flash_attention_bwd.route``
+    names for it; two launches at each timed shape give the same bits; at
+    the timed shapes the route's kernels (the tensor cores) are timed
+    beside the plain version, SDPA's backward and the bound, and the
+    CUDA-core route beside them.  Returns the backward kernels' entry of
+    the kernels line (all but its launches)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
-    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
-    print("== 17. flash_attention backward against its plain version on the "
-          "card")
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    print(f"== {title}")
     dtypes = {F32: torch.float32, BF16: torch.bfloat16}
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    timed = [shape for _, shape in timed_shapes]
     max_err, inputs = 0.0, {}
-    for shape in FA_BWD_SHAPES:
-        B, S, H, KV, hd, causal, window, dt = shape
-        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtypes[dt])
-        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen)
+    for shape in all_shapes:
+        B, Sq, Sk, H, KV, hd, causal, window, dt = shape
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[dt])
+        k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
                 .to(dtypes[dt]) for _ in range(2))
-        do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtypes[dt])
+        do = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[dt])
         kw = dict(causal=causal, window=window)
-        o = fa_ops.flash_attention(q, k, v, **kw)
         want_route = fa_bwd.route(q.dtype, hd)
         before = dict(fa_bwd.route_launches)
-        got = fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        got = fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
         used = [r for r in before if fa_bwd.route_launches[r] != before[r]]
         check(used == [want_route], f"the backward at {shape} took {used}, "
               f"expected the {want_route} route")
         lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
-        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
         torch.cuda.synchronize()
         errs = [rel_to_largest(g, w) for g, w in zip(got, want)]
         tol = FA_BWD_TOL[dt]
         ok = (all(g.dtype == w.dtype and g.shape == w.shape
                   for g, w in zip(got, want))
               and all(math.isfinite(e) and e <= tol for e in errs))
-        print(f"  B={B} S={S} H={H} KV={KV} hd={hd} causal={causal} "
+        print(f"  B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
               f"window={window} {dt}, {want_route}: dq, dk, dv errors "
               f"{', '.join(f'{e:.2e}' for e in errs)} of the largest entry "
               f"(tol {tol:.3g}) {'ok' if ok else 'FAILED'}")
         check(ok, f"flash_attention's backward disagrees at {shape}")
         max_err = max(max_err, *errs)
-        if dt == BF16 and shape[:7] in (OLMO_TRAIN, JAMBA_TRAIN):
-            inputs[shape[:7]] = (q, k, v, o, do, kw)
+        if dt == BF16 and shape[:8] in timed:
+            inputs[shape[:8]] = (q, k, v, do, kw)
         del got, want, lse
 
-    for label, shape in FA_BWD_TIMED:
-        q, k, v, o, do, kw = inputs[shape]
-        again = [fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    for label, shape in timed_shapes:
+        q, k, v, do, kw = inputs[shape]
+        again = [fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
                  for _ in range(2)]
         same = all(torch.equal(a, b) for a, b in zip(*again))
         print(f"  two launches at the {label} shape: "
@@ -1108,9 +1217,9 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         return "cuda_core"
 
     shapes = {}
-    for label, shape in FA_BWD_TIMED:
-        B, S, H, KV, hd, causal, window = shape
-        q, k, v, o, do, kw = inputs[shape]
+    for label, shape in timed_shapes:
+        B, Sq, Sk, H, KV, hd, causal, window = shape
+        q, k, v, do, kw = inputs[shape]
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1123,16 +1232,16 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
 
         def plain():
             lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
-            return fa_ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            return fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
 
-        pairs, _ = valid_pairs(S, S, causal, window, 0, None)
-        nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * q.element_size()
+        pairs, _ = valid_pairs(Sq, Sk, causal, window, 0, None)
+        nbytes = (3 * B * Sq * H * hd + 4 * B * Sk * KV * hd) * q.element_size()
         flops = 10 * B * H * hd * pairs         # 5 products, 2 FLOP each
-        print(f"  {label} {shape} bf16: {nbytes / 1e6:.1f} MB (q, k, v, o, "
-              f"dO read, dq, dk, dv written), {flops / 1e9:.2f} GFLOP (5 "
+        print(f"  {label} {shape} bf16: {nbytes / 1e6:.1f} MB (q, k, v, dO "
+              f"read, dq, dk, dv written), {flops / 1e9:.2f} GFLOP (5 "
               f"products over {pairs:,} pairs a head)")
         shapes[label] = timed_entry(
-            torch, lambda: fa_bwd.flash_attention_bwd_cuda(q, k, v, o, do, **kw),
+            torch, lambda: fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw),
             plain, sdpa_bwd, nbytes, [(flops, bf16_rate)], mem_rate)
         shapes[label]["route"] = fa_bwd.route(q.dtype, hd)
         # the CUDA-core route (the only one before the tensor cores'), cold L2
@@ -1140,7 +1249,7 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         fa_bwd.route = cuda_core_route
         try:
             cc = time_ms(torch, lambda: fa_bwd.flash_attention_bwd_cuda(
-                q, k, v, o, do, **kw), reps=10, flush=scratch.zero_, spin=True)
+                q, k, v, do, **kw), reps=10, flush=scratch.zero_, spin=True)
         finally:
             fa_bwd.route = routed
         del scratch
@@ -1153,7 +1262,7 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate):
         del out, qt, kt, vt
     del inputs
     torch.cuda.empty_cache()
-    first = shapes[FA_BWD_TIMED[0][0]]
+    first = shapes[timed_shapes[0][0]]
     return {"max_abs_err": max_err,
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -1263,16 +1372,22 @@ def train_cells():
 
 
 def train_phase(torch, counters, title, cfg, want_params, want_launches,
-                plain_seq):
-    """Phases 19 and 20: ``make_train_step(build_model(cfg, max_seq=1024),
-    adamw(warmup_cosine(3e-4, 10, steps)))`` on ``make_token_dataset``
-    batches of 4 x 1024 at full width: a warm-up step, then timed steps,
-    every launch counter set to 0 just before each step and read just after
-    (``want_launches`` each); the tree's parameters (``want_params``); loss, aux and grad_norm finite; the step split
-    into forward plus backward, clipping and the AdamW update; every
-    parameter leaf's gradient non-zero; the peak memory; one step's
-    gradients through the kernels against the plain versions' at sequence
-    ``plain_seq``.  Returns the launches of a step and the step's times."""
+                plain_seq, S=1024, extra=None, zero_leaves=()):
+    """Phases 19, 20 and 25: ``make_train_step(build_model(cfg,
+    max_seq=S), adamw(warmup_cosine(3e-4, 10, steps)))`` on
+    ``make_token_dataset`` batches of 4 x ``S`` at full width (with
+    ``extra(B)``'s entries, an encoder's frames, in each): a warm-up step,
+    then timed steps, every launch counter set to 0 just before each step
+    and read just after (``want_launches`` each); the tree's parameters
+    (``want_params``); loss, aux and grad_norm finite; the step split into
+    forward plus backward, clipping and the AdamW update; every parameter
+    leaf's gradient non-zero but those of ``zero_leaves`` (paths whose
+    gradient is 0 in exact arithmetic); the peak memory; one step's
+    gradients through the kernels against the plain versions' with each
+    input cut to ``plain_seq`` positions (an int, or one for each batch
+    key), ``zero_leaves`` held within ZERO_LEAF_TOL of the largest entry
+    of the whole tree's gradient.  Returns the launches of a step and the
+    step's numbers."""
     from repro_torch import optim, random, tree
     from repro_torch.data import make_token_dataset
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
@@ -1280,7 +1395,7 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     from repro_torch.launch.steps import make_grad_fn, make_train_step
     from repro_torch.models.transformer import build_model
     print(f"== {title}")
-    B, S, steps = 4, 1024, 4
+    B, steps = 4, 4
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1303,6 +1418,9 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
                               seq_len=S, vocab=cfg.vocab_size)
     batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()}
                for i in range(steps)]
+    if extra is not None:
+        for batch in batches:
+            batch.update(extra(B))
     step_s, launches, routes, bwd_routes = [], None, None, None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -1343,8 +1461,11 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     _, grads = grad_fn(params, batch)
     torch.cuda.synchronize()
     parts["forward + backward"] = time.perf_counter() - t0
+    paths = tree.paths(grads)
+    check(set(zero_leaves) <= set(paths), f"no leaves {zero_leaves}")
     zero = [i for i, g in enumerate(tree.leaves(grads))
-            if not bool(g.abs().max() > 0) or not bool(torch.isfinite(g).all())]
+            if not bool(torch.isfinite(g).all())
+            or (paths[i] not in zero_leaves and not bool(g.abs().max() > 0))]
     t0 = time.perf_counter()
     optim.clip_by_global_norm_(grads, 1.0)
     torch.cuda.synchronize()
@@ -1361,29 +1482,46 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
           f"parts: " + ", ".join(f"{k} {v * 1e3:.1f} ms ({v / total:.1%})"
                                  for k, v in parts.items()))
     print(f"  {len(leaves)} parameter leaves, {len(leaves) - len(zero)} with "
-          f"a non-zero, finite gradient; max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB")
+          f"a non-zero (or, for the {len(zero_leaves)} whose gradient is 0 "
+          f"in exact arithmetic, any), finite gradient; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(not zero, f"parameter leaves {zero} got a zero or non-finite "
           f"gradient")
 
     # one step's gradients through the kernels against the plain versions'
-    short = {k: v[:, :plain_seq] for k, v in batch.items()}
+    cut = (plain_seq if isinstance(plain_seq, dict)
+           else dict.fromkeys(batch, plain_seq))
+    short = {k: v[:, :cut[k]] for k, v in batch.items()}
     _, through = grad_fn(params, short)
     _, plain = with_plain_kernels(torch, counters,
                                   lambda: grad_fn(params, short))
+    pairs = list(zip(paths, tree.leaves(through), tree.leaves(plain)))
+    largest = max(w.float().abs().max().item() for _, _, w in pairs)
     ratios = [(g.float() - w.float()).abs().max().item()
               / max(1e-30, w.float().abs().max().item())
-              for g, w in zip(tree.leaves(through), tree.leaves(plain))]
+              for p, g, w in pairs if p not in zero_leaves]
     worst = max(range(len(ratios)), key=ratios.__getitem__)
     print(f"  gradients through the kernels against the plain versions "
-          f"(sequence {plain_seq}), leaf by leaf, largest difference over the "
-          f"leaf's largest entry: max {ratios[worst]:.3e} (leaf {worst}), "
-          f"median {statistics.median(ratios):.3e} (tol {TRAIN_GRAD_TOL:.4g})")
+          f"(inputs cut to {plain_seq}), leaf by leaf, largest difference "
+          f"over the leaf's largest entry: max {ratios[worst]:.3e} (leaf "
+          f"{worst}), median {statistics.median(ratios):.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.4g})")
     check(all(math.isfinite(r) and r <= TRAIN_GRAD_TOL for r in ratios),
           "the kernels' gradients disagree with the plain versions'")
-    del through, plain, state, params, leaves, data, batches
+    for p, g, w in pairs:
+        if p in zero_leaves:
+            sizes = (g.float().abs().max().item(), w.float().abs().max().item())
+            print(f"  {p} (0 in exact arithmetic): largest entry through the "
+                  f"kernels {sizes[0]:.3e}, plain {sizes[1]:.3e}, against "
+                  f"the tree's largest gradient entry {largest:.3e} "
+                  f"({max(sizes) / largest:.3e} of it, tol {ZERO_LEAF_TOL})")
+            check(max(sizes) <= ZERO_LEAF_TOL * largest,
+                  f"{p}'s gradient is not 0 within the tolerance")
+    del through, plain, pairs, state, params, leaves, data, batches
     torch.cuda.empty_cache()
     return launches, {"step_ms": [t * 1e3 for t in step_s],
+                      "tokens_per_s": B * S / statistics.median(step_s),
+                      "init_s": init_s, "params": n_params,
                       "parts_ms": {k: v * 1e3 for k, v in parts.items()},
                       "peak_gib": peak / 2**30, "routes": routes,
                       "bwd_routes": bwd_routes,
@@ -1391,23 +1529,40 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
                                         "median": statistics.median(ratios)}}
 
 
-def train_card_vs_cpu(torch):
-    """Phase 21: three train steps of reduced OLMo-1B, Jamba with its
-    experts and DeepSeek-V2 (float32) from one state, on the card and on
-    the port's CPU route: losses, aux and grad norms within
-    TRAIN_CARD_CPU_RTOL relative."""
+def model_extras(cfg, B, key, dev="cpu"):
+    """A batch's inputs beside the tokens, drawn from ``key``: an
+    encoder's frames (normal, x 0.1) and a vision prefix's rows (normal)."""
+    from repro_torch import random
+    out = {}
+    if cfg.encoder_layers:
+        out["encoder_embeds"] = (random.normal(
+            key, (B, cfg.encoder_seq, cfg.d_model)) * 0.1).to(dev)
+    if cfg.vision_tokens:
+        out["image_embeds"] = random.normal(
+            random.split(key)[1], (B, cfg.vision_tokens, cfg.d_model)).to(dev)
+    return out
+
+
+def train_card_vs_cpu(torch, names=("olmo-1b", "jamba-v0.1-52b",
+                                    "deepseek-v2-236b"),
+                      title="21. reduced train steps on the card against "
+                            "the CPU route"):
+    """Phase 21 (and 25b): three train steps of each reduced configuration
+    (float32) from one state, on the card and on the port's CPU route:
+    losses, aux and grad norms within TRAIN_CARD_CPU_RTOL relative."""
     from repro_torch import optim, random, tree
     from repro_torch.configs import get_arch
     from repro_torch.data import make_token_dataset
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.transformer import build_model
-    print("== 21. reduced train steps on the card against the CPU route")
+    print(f"== {title}")
     B, S = 2, 64
-    for name in ("olmo-1b", "jamba-v0.1-52b", "deepseek-v2-236b"):
+    for name in names:
         cfg = get_arch(name).reduced()
         model = build_model(cfg, max_seq=S)
         data = make_token_dataset(random.PRNGKey(1, "cpu"), n_seqs=3 * B,
                                   seq_len=S, vocab=cfg.vocab_size)
+        data.update(model_extras(cfg, 3 * B, random.PRNGKey(2, "cpu")))
         got = {}
         for dev in ("cuda", "cpu"):
             step, init = make_train_step(
@@ -1432,6 +1587,289 @@ def train_card_vs_cpu(torch):
               f"{TRAIN_CARD_CPU_RTOL})")
         check(worst <= TRAIN_CARD_CPU_RTOL,
               f"{name}: the card's train steps disagree with the CPU route's")
+
+
+# Whisper's key biases (self-attention and cross-attention of the decoder,
+# the encoder's self-attention): each adds one constant to every key's
+# score of a query, which softmax does not see, so their gradients are 0 in
+# exact arithmetic (rounding in both routes); phase 25 holds them to
+# ZERO_LEAF_TOL of the tree's largest gradient entry instead of their own:
+# on an H100 they read at most 1.11e-5 of it (7.125e-8 against 6.409e-3,
+# through the kernels and plain alike), and the limit is about 10 times
+# that.
+WHISPER_ZERO_LEAVES = ("/groups/sub0/mixer/wk/b", "/groups/sub0/cross/wk/b",
+                       "/encoder/mixer/wk/b")
+ZERO_LEAF_TOL = 1e-4
+# Phase 27: the int8 cache's decode logits against the bf16 cache's.  The
+# reference's int8 tolerance (tests/test_kv_quant.py: rtol 0.1, atol 0.15)
+# is stated on logits of RMS ~1 (granite-8b reduced: 0.996); OLMo-1B ties
+# its logits to a unit-normal table, RMS ~45 at full width, so the atol is
+# taken in units of the bf16 logits' RMS.  The literal one's share of
+# elements is printed beside it.
+INT8_RTOL, INT8_ATOL_RMS = 0.1, 0.15
+
+
+def sq_sk_bwd_phase(torch, mem_rate, bf16_rate):
+    """Phase 23: ``flash_bwd_phase`` at FA_BWD_SQ_SK_SHAPES, then both
+    routes at Whisper's cross-attention train shape with keys 1 % apart (a
+    deep encoder's frames: each row's attention spread evenly, so dS = P
+    (dP - D) is a difference of near-equal numbers) against torch autograd
+    through the plain forward in float32 on the same inputs, at
+    FA_BWD_TOL.  Returns the backward's entry with the largest of those
+    errors."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    entry = flash_bwd_phase(
+        torch, mem_rate, bf16_rate, "23. flash_attention backward where "
+        "queries and keys differ in number", FA_BWD_SQ_SK_SHAPES,
+        FA_BWD_SQ_SK_TIMED, seed=23)
+    B, Sq, Sk, H, KV, hd, causal, window = WHISPER_CROSS_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(231)
+    worst = 0.0
+    for dt, tdt in ((BF16, torch.bfloat16), (F32, torch.float32)):
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen)
+        k = (torch.randn(1, 1, KV, hd, device="cuda", generator=gen)
+             + 0.01 * torch.randn(B, Sk, KV, hd, device="cuda", generator=gen))
+        v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
+        do = torch.randn(B, Sq, H, hd, device="cuda", generator=gen)
+        q, k, v, do = (t.to(tdt) for t in (q, k, v, do))
+        got = fa_bwd.flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                              window=window)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        o = fa_ref.flash_attention_ref(*leaves, causal=causal, window=window)
+        want = torch.autograd.grad(o, leaves, do.float())
+        errs = [rel_to_largest(g, w) for g, w in zip(got, want)]
+        print(f"  keys 1 % apart, {WHISPER_CROSS_TRAIN} {dt}, "
+              f"{fa_bwd.route(tdt, hd)}: dq, dk, dv against autograd of the "
+              f"float32 forward {', '.join(f'{e:.2e}' for e in errs)} of the "
+              f"largest entry (tol {FA_BWD_TOL[dt]:.3g})")
+        check(all(math.isfinite(e) and e <= FA_BWD_TOL[dt] for e in errs),
+              f"the backward misses autograd's gradient with alike keys ({dt})")
+        worst = max(worst, *errs)
+        del got, want, o, leaves
+    torch.cuda.empty_cache()
+    return {**entry, "alike_keys_max_err": worst}
+
+
+def slice_phases(torch, counters, mem_rate, bf16_rate, smi, t_start,
+                 only=None):
+    """Phases 22-27 (those named in ``only``, or all), each followed by
+    its seconds, the script's so far and the card's name and power limit
+    (``smi``).  Returns each phase's result by number."""
+    from repro_torch.configs import get_arch
+    phases = {
+        "22": lambda: flash_phase(
+            torch, mem_rate, bf16_rate, "22. flash_attention at "
+            "Whisper-medium's and LLaVA-NeXT's shapes",
+            [shape for _, shape in FA_NEW_TIMED], FA_NEW_TIMED, seed=22)[0],
+        "23": lambda: sq_sk_bwd_phase(torch, mem_rate, bf16_rate),
+        "24": lambda: encdec_serve_phase(
+            torch, counters, "24. serving Whisper-medium at full width and "
+            "depth", get_arch("whisper-medium"), 812_935_168),
+        "25": lambda: whisper_train_phase(torch, counters),
+        "26": lambda: encdec_serve_phase(
+            torch, counters, "26. serving LLaVA-NeXT-Mistral-7B at full "
+            "width and depth", get_arch("llava-next-mistral-7b"),
+            7_241_732_096),
+        "27": lambda: int8_phase(torch, counters)}
+    out = {}
+    for name, run in phases.items():
+        if only is not None and name not in only:
+            continue
+        t0 = time.perf_counter()
+        out[name] = run()
+        print(f"  phase {name} took {time.perf_counter() - t0:.1f} s; the "
+              f"script so far {time.perf_counter() - t_start:.1f} s ({smi})")
+    return out
+
+
+def meta_tree_size(cfg, max_seq):
+    """The parameter tree's size, counted on the meta device (shapes only,
+    nothing drawn)."""
+    from repro_torch import random, tree
+    from repro_torch.models.transformer import build_model
+    params = build_model(cfg, max_seq=max_seq).init(random.PRNGKey(0, "meta"))
+    return sum(t.numel() for t in tree.leaves(params))
+
+
+def encdec_serve_phase(torch, counters, title, cfg, want_params):
+    """Phases 24 and 26: one full-width ``serve()`` (batch 4, prompt 32,
+    32 tokens, temperature 1) with every counter set to 0 just before and
+    read just after, flash's routes derived from the configuration: at
+    prefill one tensor-core call for each encoder layer and each decoder
+    attention (self and cross), at each of the 31 decode steps one split-K
+    call for each decoder attention; then the reduced configuration served
+    greedily on the card and on the CPU route (phase 9's check).  Returns
+    the launches, the routes and the serving numbers."""
+    from repro_torch.configs import get_arch
+    print(f"== {title}")
+    P, G = 32, 32
+    attn = cfg.num_layers * (2 if cfg.cross_attention else 1)
+    routes = {"tensor_core": cfg.encoder_layers + attn,
+              "split_k": attn * (G - 1), "cuda_core": 0}
+    n_params = meta_tree_size(cfg, cfg.vision_tokens + P + G)
+    print(f"  parameter tree {n_params:,} (ArchConfig.num_params() "
+          f"{cfg.num_params():,}); prompt {P} after {cfg.vision_tokens} image "
+          f"rows, {cfg.encoder_seq} encoder frames")
+    check(n_params == want_params, f"the tree holds {n_params} parameters, "
+          f"expected {want_params}")
+    launches, got, numbers = serve_checked(
+        torch, counters, cfg,
+        {"bwo_evolve": 0, "flash_attention": sum(routes.values()),
+         "ssm_scan": 0, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
+        routes, f"the {cfg.name} serving path", P=P)
+    if cfg.encoder_layers:
+        numbers["encoder_vs_float32"] = encoder_precision(torch, cfg)
+    card_vs_cpu(torch, f"{cfg.name} reduced", get_arch(cfg.name).reduced())
+    return launches, got, numbers
+
+
+# The port runs an encoder in param_dtype (Model._encode casts the frames
+# plus positions to it), where the reference lets float32 frames promote
+# its bf16 weights to a float32 encoder (ROADMAP queue 3).  Phase 24 reads
+# the difference at full width: the bf16 encoder's output against a
+# float32 encoder on the same weights and frames, held to ENC_BF16_RMS_TOL
+# in RMS over the float32 output's RMS.
+ENC_BF16_RMS_TOL = 2 ** -5
+
+
+def encoder_precision(torch, cfg):
+    """The encoder's output in bf16 (the port's) against float32 (the
+    reference's promotion) on one drawing of the weights and 4 x
+    ``encoder_seq`` frames: RMS and largest differences over the float32
+    output's, and each run's flash routes."""
+    from repro_torch import random, tree
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.models.transformer import build_model
+    dev = torch.device("cuda")
+    params = build_model(cfg, max_seq=8).init(random.PRNGKey(0, dev))
+    enc = {k: params[k] for k in ("encoder", "enc_pos", "enc_norm")}
+    del params
+    frames = model_extras(cfg, 4, random.PRNGKey(2, dev), "cuda")["encoder_embeds"]
+    outs, routes = [], []
+    for dt in (cfg.param_dtype, torch.float32):
+        model = build_model(dataclasses.replace(cfg, param_dtype=dt), max_seq=8)
+        before = dict(fa_kernel.route_launches)
+        with torch.no_grad():
+            outs.append(model._encode(tree.map(lambda t: t.to(dt), enc),
+                                      frames).float())
+        routes.append({r: fa_kernel.route_launches[r] - before[r]
+                       for r in fa_kernel.ROUTES})
+    got, want = outs
+    diff = got - want
+    rms = (diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+    largest = (diff.abs().max() / want.abs().max()).item()
+    print(f"  the {cfg.param_dtype} encoder against a float32 one on the same "
+          f"weights (4 x {cfg.encoder_seq} frames): RMS {rms:.3e} of the "
+          f"float32 output's (tol 2^-5), largest {largest:.3e} of its largest "
+          f"entry; routes {routes[0]} and {routes[1]}")
+    check(math.isfinite(rms) and rms <= ENC_BF16_RMS_TOL,
+          "the bf16 encoder is further from the float32 one than expected")
+    del enc, frames, outs, got, want, diff
+    torch.cuda.empty_cache()
+    return {"rms": rms, "largest": largest}
+
+
+def whisper_train_phase(torch, counters):
+    """Phase 25: Whisper-medium trained at full width and depth on 4 x 448
+    decoder tokens (its max_target_positions, arXiv:2212.04356) and 1500
+    encoder frames drawn from the seed (``train_phase``): 24 encoder
+    forwards, 2 x 24 decoder attentions run twice (the groups' activation
+    checkpointing), 72 backwards, all on the tensor cores; the plain
+    comparison on the 448 tokens and 750 of the frames.  Then 25b."""
+    from repro_torch import random
+    from repro_torch.configs import get_arch
+    cfg = get_arch("whisper-medium")
+    S, n = 448, cfg.num_layers
+    key = random.PRNGKey(2, torch.device("cuda"))
+    out = train_phase(
+        torch, counters, "25. training Whisper-medium at full width and depth",
+        cfg, 813_328_384,
+        {"bwo_evolve": 0, "flash_attention": cfg.encoder_layers + 2 * 2 * n,
+         "flash_attention_bwd": cfg.encoder_layers + 2 * n, "ssm_scan": 0,
+         "ssm_scan_bwd": 0},
+        {"tokens": S, "labels": S, "encoder_embeds": 750}, S=S,
+        extra=lambda B: model_extras(cfg, B, key, "cuda"),
+        zero_leaves=WHISPER_ZERO_LEAVES)
+    train_card_vs_cpu(torch, ("whisper-medium", "llava-next-mistral-7b"),
+                      "25b. reduced Whisper-medium and LLaVA-NeXT train steps "
+                      "on the card against the CPU route")
+    return out
+
+
+def int8_phase(torch, counters):
+    """Phase 27: OLMo-1B at full width through the model API (the
+    reference's serve has no int8 switch): ``cache_init(4, 1056,
+    quantized=...)``, prefill 1024, then 32 decode steps, with the bf16
+    cache and then the int8 one, on one drawing of the weights and the
+    same tokens; every counter set to 0 before each run and read after
+    (16 tensor-core, 512 split-K calls: the int8 cache is dequantized to
+    bf16 before the kernel).  Each step's logits against the bf16 cache's
+    (INT8_RTOL, INT8_ATOL_RMS).  Returns the int8 run's launches, routes
+    and numbers."""
+    from repro_torch import random, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.models.transformer import build_model
+    print("== 27. the int8 KV cache at OLMo-1B full width")
+    cfg = get_arch("olmo-1b")
+    B, P, G = 4, 1024, 32
+    dev = torch.device("cuda")
+    model = build_model(cfg, max_seq=P + G)
+    params = model.init(random.PRNGKey(0, dev))
+    toks = random.randint(random.PRNGKey(1, dev), (B, P + G), 0,
+                          cfg.vocab_size)
+    runs = {}
+    for quantized in (False, True):
+        cache = model.cache_init(B, P + G, quantized=quantized, device=dev)
+        nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        _, cache, _ = model.apply(params, {"tokens": toks[:, :P]},
+                                  mode="prefill", cache=cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs = []
+        t0 = time.perf_counter()
+        for t in range(P, P + G):
+            logits, cache, _ = model.apply(
+                params, {"tokens": toks[:, t:t + 1]}, mode="decode",
+                cache=cache, cache_pos=t)
+            outs.append(logits[:, 0])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / G * 1e3
+        launches, routes = read_counts(counters), dict(fa_kernel.route_launches)
+        name = "int8" if quantized else "bf16"
+        print(f"  {name} cache: {nbytes:,} bytes; prefill {prefill_ms:.3f} ms, "
+              f"decode {decode_ms:.3f} ms a step; launches {launches}")
+        check_routes(routes, {"tensor_core": cfg.num_layers,
+                              "split_k": cfg.num_layers * G, "cuda_core": 0},
+                     f"the {name} cache's prefill and decode")
+        runs[name] = {"logits": torch.stack(outs), "cache_bytes": nbytes,
+                      "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+                      "launches": launches, "routes": routes}
+        del cache
+    got, want = runs["int8"].pop("logits"), runs["bf16"].pop("logits")
+    check(bool(torch.isfinite(got).all()), "non-finite int8 logits")
+    diff, mag = (got - want).abs(), want.abs()
+    rms = want.pow(2).mean().sqrt().item()
+    literal = (diff > 0.15 + 0.1 * mag).float().mean().item()
+    ok = bool((diff <= INT8_ATOL_RMS * rms + INT8_RTOL * mag).all())
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"  int8 against bf16 over {G} steps: max |diff| "
+          f"{diff.max().item():.4f}, bf16 logits RMS {rms:.3f} (max "
+          f"{mag.max().item():.2f}); within rtol {INT8_RTOL} + atol "
+          f"{INT8_ATOL_RMS} x RMS: {'yes' if ok else 'NO'}; the literal atol "
+          f"0.15 fails at {literal:.2%} of elements; the same greedy token "
+          f"at {top1:.2%} of (step, row); cache bytes "
+          f"{runs['int8']['cache_bytes'] / runs['bf16']['cache_bytes']:.3f} "
+          f"of bf16's")
+    check(ok, "the int8 cache's logits left the reference's int8 tolerance "
+          "(in units of the logits' RMS)")
+    del params, toks, got, want
+    torch.cuda.empty_cache()
+    return runs
 
 
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
@@ -2307,7 +2745,21 @@ def main() -> int:
     print(f"phases 17-21 took {time.perf_counter() - t_train:.1f} s; the "
           f"script so far {time.perf_counter() - t_start:.1f} s")
 
+    # ------------------- 22.-27. encoder-decoder, vision, the int8 cache --
+    new = slice_phases(torch, counters, mem_rate, bf16_rate, smi, t_start)
+    fa_new, fa_bwd_new = new["22"], new["23"]
+    whisper_launches, whisper_routes, whisper_serve = new["24"]
+    whisper_train, whisper_step = new["25"]
+    llava_launches, llava_routes, llava_serve = new["26"]
+    int8 = new["27"]
+
     # --------------------------------------------------------- results --
+    print(json.dumps({"paths": {"whisper-medium serve": whisper_serve,
+                                "llava-next-mistral-7b serve": llava_serve,
+                                "whisper-medium train step": {
+                                    k: v for k, v in whisper_step.items()
+                                    if "routes" not in k},
+                                "olmo-1b int8 cache": int8}}))
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",
@@ -2321,13 +2773,24 @@ def main() -> int:
         "launches": (serve_launches + sum(jamba_routes.values())
                      + moe_launches["flash_attention"]
                      + olmo_train["flash_attention"]
-                     + jamba_train["flash_attention"]),
+                     + jamba_train["flash_attention"]
+                     + whisper_launches["flash_attention"]
+                     + whisper_train["flash_attention"]
+                     + llava_launches["flash_attention"]
+                     + int8["int8"]["launches"]["flash_attention"]),
         "route_launches": {"olmo-1b": olmo_routes,
                            "jamba without experts": jamba_routes,
                            "jamba with experts": moe_routes,
                            "olmo-1b train step": fa_bwd["train_step"]["routes"],
                            "jamba train step":
-                               ssm_bwd["train_step"]["routes"]}, **fa}, {
+                               ssm_bwd["train_step"]["routes"],
+                           "whisper-medium": whisper_routes,
+                           "whisper-medium train step":
+                               whisper_step["routes"],
+                           "llava-next-mistral-7b": llava_routes,
+                           "olmo-1b int8 cache": int8["int8"]["routes"]},
+        **fa, "shapes": {**fa["shapes"], **fa_new["shapes"]},
+        "max_abs_err": max(fa["max_abs_err"], fa_new["max_abs_err"])}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
@@ -2342,11 +2805,15 @@ def main() -> int:
         "differentiates": "src/repro/models/attention.py:224 (the train "
                           "step's blockwise_attention, differentiated by XLA)",
         "launches": (olmo_train["flash_attention_bwd"]
-                     + jamba_train["flash_attention_bwd"]),
+                     + jamba_train["flash_attention_bwd"]
+                     + whisper_train["flash_attention_bwd"]),
         "route_launches": {
             "olmo-1b train step": fa_bwd["train_step"]["bwd_routes"],
-            "jamba train step": ssm_bwd["train_step"]["bwd_routes"]},
-        **fa_bwd}, {
+            "jamba train step": ssm_bwd["train_step"]["bwd_routes"],
+            "whisper-medium train step": whisper_step["bwd_routes"]},
+        **fa_bwd, "shapes": {**fa_bwd["shapes"], **fa_bwd_new["shapes"]},
+        "max_abs_err": max(fa_bwd["max_abs_err"], fa_bwd_new["max_abs_err"])},
+        {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",

@@ -11,8 +11,8 @@
 // masks (causal: j <= i; window w: j > i - w; every j < Sk):
 //
 //   s_ij  = (q_i . k_j) * scale,   P_ij = exp(s_ij - lse_i)  (0 if masked)
-//   D_i   = dO_i . O_i
-//   dS_ij = P_ij (dO_i . v_j - D_i)
+//   dP_ij = dO_i . v_j,            D_i = sum_j P_ij dP_ij
+//   dS_ij = P_ij (dP_ij - D_i)
 //   dq_i  = scale * sum_j dS_ij k_j
 //   dk_j  = scale * sum_{i, h in j's group} dS_ij q_i
 //   dv_j  = sum_{i, h in j's group} P_ij dO_i
@@ -21,27 +21,31 @@
 // queries' absolute positions start at 0 and every key is valid (training);
 // the wrapper raises on anything else.
 //
-// The log-sum-exp is recomputed here, not written by the forward: the
-// serving routes' sources and launches stay as they are, and the forward
-// under activation checkpointing runs twice a step while only the second
-// run's statistics would be read.  Its cost is one more pass of q k^T.
+// The log-sum-exp and D are recomputed here, not written by the forward:
+// the serving routes' sources and launches stay as they are, and the
+// forward under activation checkpointing runs twice a step while only the
+// second run's statistics would be read.  Their cost is one more pass of q
+// k^T and dO v^T.  D is sum_j P dP, not FlashAttention-2's dO . O from the
+// forward's output, which in bf16 swamps dS where a row's attention spreads
+// over many alike keys (flash_attention_bwd_hopper.cu says more).
 //
 // Bound, on the H100 SXM.  OLMo-1B's train shape (B 4, S 1024, H 16 on 16,
 // hd 128, causal, bf16): the gradient needs 5 products over the valid
 // pairs against the forward's 2, 2.5 x 17.2 = 43.0 GFLOP, 0.0434 ms at
-// the 989 TFLOP/s of the bf16 tensor cores; q, k, v, o, dO, dq, dk and dv
-// are ~134 MB, 0.040 ms.  Jamba (H 32 on 8): 85.9 GFLOP, 0.0868 ms.  This
-// kernel runs on the CUDA cores (67 TFLOP/s fp32) and does 8 products (q
-// k^T three times, dO v^T twice, and the three gradients), so its own
+// the 989 TFLOP/s of the bf16 tensor cores; q, k, v, dO, dq, dk and dv
+// are ~117 MB, 0.035 ms.  Jamba (H 32 on 8): 85.9 GFLOP, 0.0868 ms.  This
+// kernel runs on the CUDA cores (67 TFLOP/s fp32) and does 9 products (q
+// k^T and dO v^T three times each, and the three gradients), so its own
 // floor is about 1 ms at OLMo's shape: simple first, the tensor cores
-// later.
+// later (flash_attention_bwd_hopper.cu).
 //
 // Design (FlashAttention-2's backward, Dao 2023):
 // - dq pass, one block of 256 threads per (query tile of 64, head, batch
-//   row): q and dO of the tile staged in shared memory as fp32, D from dO
-//   and O; a first loop over the visible key tiles recomputes each row's
-//   log-sum-exp (online max and sum, as the forward), and both statistics
-//   go to a (B, H, Sq) scratch for the second pass; a second loop over the
+//   row): q and dO of the tile staged in shared memory as fp32; a first
+//   loop over the visible key tiles stages k and v and recomputes each
+//   row's log-sum-exp and D (online max, sum and sum of P dP, as the
+//   forward's softmax), and both statistics go to a (B, H, Sq) scratch for
+//   the dk/dv pass; a second loop over the
 //   same key tiles stages k and v, recomputes P and dS, and accumulates dq
 //   in registers (each thread 4 rows x hd/16 columns);
 // - dk/dv pass, one block per (key tile of 64, KV head, batch row): k and
@@ -72,8 +76,7 @@ struct Params {
   const void* q;                    // (B, Sq, H, hd), contiguous
   const void* k;                    // (B, Sk, KV, hd)
   const void* v;
-  const void* o;                    // (B, Sq, H, hd)
-  const void* dout;
+  const void* dout;                 // (B, Sq, H, hd)
   void* dq;
   void* dk;
   void* dv;
@@ -238,7 +241,6 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   const int64_t kbase = static_cast<int64_t>(b) * p.Sk * k_rs +
                         static_cast<int64_t>(h / p.rep) * HD;
   const T* q = static_cast<const T*>(p.q) + qbase;
-  const T* o = static_cast<const T*>(p.o) + qbase;
   const T* dout = static_cast<const T*>(p.dout) + qbase;
   const T* k = static_cast<const T*>(p.k) + kbase;
   const T* v = static_cast<const T*>(p.v) + kbase;
@@ -254,35 +256,23 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   stage<HD, kBQ, LD>(dos, dout, q_rs, nq, p.vec);
   __syncthreads();
 
-  // D_i = dO_i . O_i
-  float delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    float s = 0.0f;
-    if (r < nq) {
-#pragma unroll
-      for (int c = 0; c < CN; ++c)
-        s = fmaf(dos[r * LD + tx + 16 * c],
-                 to_float(o[r * q_rs + tx + 16 * c]), s);
-    }
-    delta[i] = half_warp_sum(s);
-  }
-
-  // the rows' log-sum-exp, as the forward's online softmax
-  float m[4], l[4];
+  // the rows' log-sum-exp, as the forward's online softmax, and
+  // D_i = sum_j P_ij dP_ij with the same running rescale
+  float m[4], l[4], a[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
+    a[i] = 0.0f;
   }
   float s[4][4], t[4][4];
   for (int k0 = lo; k0 < hi; k0 += kBK) {
     const int nk = min(kBK, p.Sk - k0);
     __syncthreads();
     stage<HD, kBK, LD>(ks, k + k0 * k_rs, k_rs, nk, p.vec);
+    stage<HD, kBK, LD>(vs, v + k0 * k_rs, k_rs, nk, p.vec);
     __syncthreads();
-    products<HD, LD, false>(qs, ks, nullptr, nullptr, s, t, ty, tx);
+    products<HD, LD, true>(qs, ks, dos, vs, s, t, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
@@ -294,18 +284,25 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float sum = 0.0f;
+      float sum = 0.0f, dsum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + half_warp_sum(sum);
+      for (int j = 0; j < 4; ++j) {
+        const float e = expf(s[i][j] - m_new);
+        sum += e;
+        dsum = fmaf(e, t[i][j], dsum);
+      }
+      const float c = expf(m[i] - m_new);
+      l[i] = l[i] * c + half_warp_sum(sum);
+      a[i] = a[i] * c + half_warp_sum(dsum);
       m[i] = m_new;
     }
   }
-  float lse[4];
+  float lse[4], delta[4];
   const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.Sq + q0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     lse[i] = m[i] + logf(l[i]);
+    delta[i] = a[i] / l[i];
     const int r = ty + 16 * i;
     if (tx == 0 && r < nq) {
       p.lse[stat + r] = lse[i];
@@ -520,14 +517,14 @@ cudaError_t launch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
 }  // namespace
 
 // C entry point, loaded with ctypes.  Pointers are device pointers to
-// contiguous arrays: q, o, dout and dq (B, Sq, H, hd); k, v, dk and dv (B,
+// contiguous arrays: q, dout and dq (B, Sq, H, hd); k, v, dk and dv (B,
 // Sk, KV, hd); all of one type, bfloat16 (bf16 != 0) or float32; lse and
 // delta (B, H, Sq) float32 scratch.  window <= 0: none.  Returns
 // cudaGetLastError() after the launches (or the error that stopped them):
 // non-zero means a kernel did not run.
 extern "C" int flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    const void* q, const void* k, const void* v, const void* dout,
+    void* dq, void* dk, void* dv, void* lse, void* delta,
     int bf16, int B, int Sq, int Sk, int H, int KV, int hd, int causal,
     int window, float scale, int vec, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || Sk <= 0) return 0;
@@ -536,7 +533,6 @@ extern "C" int flash_attention_bwd(
   p.q = q;
   p.k = k;
   p.v = v;
-  p.o = o;
   p.dout = dout;
   p.dq = dq;
   p.dk = dk;

@@ -13,8 +13,8 @@
 // (causal: j <= i; window w: j > i - w; every j < Sk):
 //
 //   s_ij  = (q_i . k_j) * scale,   P_ij = exp(s_ij - lse_i)  (0 if masked)
-//   D_i   = dO_i . O_i
-//   dS_ij = P_ij (dO_i . v_j - D_i)
+//   dP_ij = dO_i . v_j,            D_i = sum_j P_ij dP_ij
+//   dS_ij = P_ij (dP_ij - D_i)
 //   dq_i  = scale * sum_j dS_ij k_j
 //   dk_j  = scale * sum_{i, h in j's group} dS_ij q_i
 //   dv_j  = sum_{i, h in j's group} P_ij dO_i
@@ -30,27 +30,37 @@
 // tools/flash_attention_bwd_ablation.py).  The queries' positions start at
 // 0 and every key is valid (training).
 //
+// D is taken as sum_j P_ij dP_ij from the recomputed P and dP in fp32, not
+// as FlashAttention-2 takes it, dO_i . O_i from the forward's bf16 output:
+// where a row's attention spreads over many alike keys (Whisper's
+// cross-attention over a deep encoder's 1500 frames), dS is a difference
+// of near-equal numbers, and O's rounding to bf16 (2^-9) swamps it: dq at
+// 8.8e-2 and 0.36 of its largest entry from autograd's with keys 5 % and
+// 1 % apart, against 2.1e-3 and 2.6e-3 (bf16's own rounding) this way
+// (tools/flash_bwd_accuracy.py cpu, the plain versions).
+//
 // Bound, on the H100 SXM at 700 W.  The function needs 5 products over the
 // valid pairs (q k^T, dO v^T and the three gradients), 2.5 times the
 // forward's 2.  OLMo-1B's train shape (B 4, S 1024, 16 heads on 16, hd
 // 128, causal): 43.0 GFLOP, 0.0435 ms at the 989 TFLOP/s of the bf16
-// tensor cores, against 134.2 MB of q, k, v, o, dO, dq, dk and dv, 0.0401
-// ms at 3.35 TB/s.  Jamba (32 heads on 8): 86.0 GFLOP, 0.0869 ms, over
-// 167.8 MB, 0.0501 ms.  So the products bound it, and every one of them
-// has to run on the tensor cores: on the CUDA cores (67 TFLOP/s fp32) the
-// gradient alone takes ~0.65 ms at OLMo's shape.  The bound is the
-// function's; this design does 8 products, 11 with the remainders'
-// (below).
+// tensor cores, against 117.4 MB of q, k, v, dO, dq, dk and dv read once
+// and written once, 0.0350 ms at 3.35 TB/s.  Jamba (32 heads on 8): 86.0
+// GFLOP, 0.0869 ms, over 134.2 MB, 0.0401 ms.  So the products bound it,
+// and every one of them has to run on the tensor cores: on the CUDA cores
+// (67 TFLOP/s fp32) the gradient alone takes ~0.65 ms at OLMo's shape.
+// The bound is the function's; this design does 9 products, 12 with the
+// remainders' (below).
 //
 // Design: FlashAttention-2's split of the gradient into a dq pass and a
 // dk/dv pass, each on wgmma as FlashAttention-3 maps it onto Hopper, with
 // no atomics anywhere, so two launches give the same bits.
-// - Statistics.  The rows' log-sum-exp is recomputed by the dq kernel with
-//   one more Q K^T pass on wgmma; the forward does not write it, so the
-//   forward sources and serving's launches stay as they are.  D = rowsum(
-//   dO O) comes from the bf16 O.  Both go to an fp32 (2, B, H, Sq_pad)
-//   scratch the wrapper allocates (the log-sum-exp in log2 units; rows
-//   past Sq get 1e30, so their P is exactly 0).
+// - Statistics.  The rows' log-sum-exp and D are recomputed by the dq
+//   kernel in a first pass over the keys on wgmma (Q K^T and dO V^T, the
+//   sums online as the forward's softmax); the forward does not write
+//   them, so the forward sources and serving's launches stay as they are.
+//   Both go to an fp32 (2, B, H, Sq_pad) scratch the wrapper allocates
+//   (the log-sum-exp in log2 units; rows past Sq get 1e30, so their P is
+//   exactly 0).
 // - dq kernel: one block per (128-query tile, head, batch row), numbered
 //   heaviest first (under a causal mask the last query tiles see the most
 //   keys).  Three warpgroups: a producer whose one thread issues TMA
@@ -59,11 +69,11 @@
 //   (pass 1) and K and V (pass 2) of every visible 64-key tile stream
 //   through a ring of 2 stages, 128-byte swizzled, with mbarriers for
 //   "full" (transaction bytes) and "empty" (the 8 consumer warps).
-//   Pass 1: S = Q K^T (wgmma SS, both K-major), the rows' online max and
-//   sum.  Pass 2: S = Q K^T and dP = dO V^T (SS), P and dS in registers,
-//   dQ += dS K with dS as the register A operand and K as the transposed
-//   (MN-major) B operand, as the forward's P V.  4 products a pair (5 with
-//   the remainder's).
+//   Pass 1: S = Q K^T and dP = dO V^T (wgmma SS, both K-major), the rows'
+//   online max, sum and sum of P dP.  Pass 2: S and dP again, P and dS in
+//   registers, dQ += dS K with dS as the register A operand and K as the
+//   transposed (MN-major) B operand, as the forward's P V.  5 products a
+//   pair (6 with the remainder's).
 // - dk/dv kernel: one block per (64-key tile, KV head, batch row), the
 //   first key tiles first (they see the most queries under a causal mask).
 //   K and V of the tile come in by TMA and stay; the producer streams Q,
@@ -306,8 +316,7 @@ constexpr int kKvRows = 64;         //               queries of a tile
 constexpr int kPBufs = 2;           //               P^T exchange buffers
 
 struct Params {
-  const bf16* o;                    // (B, Sq, H, hd), contiguous
-  const bf16* dout;
+  const bf16* dout;                 // (B, Sq, H, hd), contiguous
   bf16* dq;                         // (B, Sq, H, hd)
   bf16* dk;                         // (B, Sk, KV, hd)
   bf16* dv;
@@ -409,36 +418,6 @@ __device__ __forceinline__ void issue_grad(float (&acc)[HD / 2],
   }
 }
 
-// rowsum(dO O) for rows qpos, read from global memory: the 4 lanes of a
-// quad take hd / 4 columns each.
-template <int HD>
-__device__ __forceinline__ float row_delta(const Params& p, int b, int h,
-                                           int qpos, int tc) {
-  float sum = 0.0f;
-  if (qpos < p.Sq) {
-    const int64_t off = ((static_cast<int64_t>(b) * p.Sq + qpos) * p.H + h)
-                        * HD + tc * (HD / 4);
-    const uint4* o4 = reinterpret_cast<const uint4*>(p.o + off);
-    const uint4* d4 = reinterpret_cast<const uint4*>(p.dout + off);
-#pragma unroll
-    for (int i = 0; i < HD / 32; ++i) {
-      const uint4 ov = o4[i], dv = d4[i];
-      const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 of = __bfloat1622float2(oh[j]);
-        const float2 df = __bfloat1622float2(dh[j]);
-        sum = fmaf(of.x, df.x, sum);
-        sum = fmaf(of.y, df.y, sum);
-      }
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  return sum;
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
@@ -484,21 +463,17 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         tma_load_4d(smem + L::kDO + c * kDqRows * 128, &tdo, q_full,
                     c * kPanel, h, q0, b);
       }
-      int it = 0;
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int t = 0; t < n_tiles; ++t, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) + 1) & 1);
-          const int k0 = lo + t * kDqKeys;
-          mbar_expect_tx(&full[s], (pass + 1) * L::kTileBytes);
-          for (int c = 0; c < L::kPanels; ++c) {
-            tma_load_4d(smem + L::kK + s * L::kTileBytes + c * kDqKeys * 128,
-                        &tk, &full[s], c * kPanel, kvh, k0, b);
-            if (pass == 1)
-              tma_load_4d(smem + L::kV + s * L::kTileBytes
-                          + c * kDqKeys * 128, &tv, &full[s], c * kPanel,
-                          kvh, k0, b);
-          }
+      // both passes read K and V of every visible key tile
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) + 1) & 1);
+        const int k0 = lo + (it % n_tiles) * kDqKeys;
+        mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+        for (int c = 0; c < L::kPanels; ++c) {
+          tma_load_4d(smem + L::kK + s * L::kTileBytes + c * kDqKeys * 128,
+                      &tk, &full[s], c * kPanel, kvh, k0, b);
+          tma_load_4d(smem + L::kV + s * L::kTileBytes + c * kDqKeys * 128,
+                      &tv, &full[s], c * kPanel, kvh, k0, b);
         }
       }
     }
@@ -516,14 +491,13 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_addr = smem_u32(smem + L::kQ) + cw * 64 * 128;
   const uint32_t do_addr = smem_u32(smem + L::kDO) + cw * 64 * 128;
 
-  const float d0 = row_delta<HD>(p, b, h, qpos0, tc);
-  const float d1 = row_delta<HD>(p, b, h, qpos1, tc);
   mbar_wait(q_full, 0);
 
   // pass 1: the rows' log-sum-exp, as the forward's online softmax, in
-  // log2 units
-  float s[32];
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+  // log2 units, and D = sum_j P dP with the same running rescale
+  float s[32], dp[32];
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, a0 = 0.0f,
+        a1 = 0.0f;
   int it = 0;
   for (int t = 0; t < n_tiles; ++t, ++it) {
     const int st = it % kStages;
@@ -533,9 +507,12 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       issue_s<HD, kDqRows>(s, q_addr,
                            smem_u32(smem + L::kK + st * L::kTileBytes));
+      issue_s<HD, kDqRows>(dp, do_addr,
+                           smem_u32(smem + L::kV + st * L::kTileBytes));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
+      fence_regs(dp);
       const bool masked = tile_masked(p, qw0, k0);
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
@@ -555,35 +532,49 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
       const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      l0 *= exp2f(m0 - mn0);
-      l1 *= exp2f(m1 - mn1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      l0 *= c0;
+      a0 *= c0;
+      l1 *= c1;
+      a1 *= c1;
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
-        l0 += exp2f(s[4 * n8 + 0] - mn0) + exp2f(s[4 * n8 + 1] - mn0);
-        l1 += exp2f(s[4 * n8 + 2] - mn1) + exp2f(s[4 * n8 + 3] - mn1);
+        const float e0 = exp2f(s[4 * n8 + 0] - mn0);
+        const float e1 = exp2f(s[4 * n8 + 1] - mn0);
+        const float e2 = exp2f(s[4 * n8 + 2] - mn1);
+        const float e3 = exp2f(s[4 * n8 + 3] - mn1);
+        l0 += e0 + e1;
+        l1 += e2 + e3;
+        a0 = fmaf(e0, dp[4 * n8 + 0], fmaf(e1, dp[4 * n8 + 1], a0));
+        a1 = fmaf(e2, dp[4 * n8 + 2], fmaf(e3, dp[4 * n8 + 3], a1));
       }
     }
     if (lane == 0) mbar_arrive(&empty[st]);
   }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    a0 += __shfl_xor_sync(0xffffffffu, a0, off);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+  }
   const float lse0 = qpos0 < p.Sq ? m0 + log2f(l0) : kNoRow;
   const float lse1 = qpos1 < p.Sq ? m1 + log2f(l1) : kNoRow;
+  const float d0 = qpos0 < p.Sq ? a0 / l0 : 0.0f;
+  const float d1 = qpos1 < p.Sq ? a1 / l1 : 0.0f;
   if (tc == 0) {
     const int64_t stat = (static_cast<int64_t>(b) * p.H + h) * p.sq_pad;
     const int64_t plane = static_cast<int64_t>(p.B) * p.H * p.sq_pad;
     p.stats[stat + qpos0] = lse0;
     p.stats[stat + qpos1] = lse1;
-    p.stats[plane + stat + qpos0] = qpos0 < p.Sq ? d0 : 0.0f;
-    p.stats[plane + stat + qpos1] = qpos1 < p.Sq ? d1 : 0.0f;
+    p.stats[plane + stat + qpos0] = d0;
+    p.stats[plane + stat + qpos1] = d1;
   }
 
   // pass 2: dQ += dS K
-  float dp[32], dq[HD / 2];
+  float dq[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
   for (int t = 0; t < n_tiles; ++t, ++it) {
@@ -966,21 +957,20 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 }  // namespace
 
 // C entry point, loaded with ctypes.  Pointers are device pointers to
-// contiguous bf16 arrays with 16-byte-aligned bases: q, o, dout and dq (B,
-// Sq, H, hd); k, v, dk and dv (B, Sk, KV, hd); stats a float32 (2, B, H,
+// contiguous bf16 arrays with 16-byte-aligned bases: q, dout and dq (B, Sq,
+// H, hd); k, v, dk and dv (B, Sk, KV, hd); stats a float32 (2, B, H,
 // sq_pad) scratch with sq_pad = Sq rounded up to a multiple of 128.  hd 64
 // or 128; window <= 0 means none.  Returns 0 or the error that kept its
 // kernels from running.
 extern "C" int flash_attention_tc_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+    const void* q, const void* k, const void* v, const void* dout,
+    void* dq, void* dk, void* dv, void* stats, int B,
     int Sq, int Sk, int H, int KV, int hd, int causal, int window,
     float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || Sk <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || (hd != 64 && hd != 128))
     return cudaErrorInvalidValue;
   Params p;
-  p.o = static_cast<const bf16*>(o);
   p.dout = static_cast<const bf16*>(dout);
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);

@@ -2,8 +2,8 @@
 hand-written CUDA kernels for Hopper, on two routes.
 
 The backward of ``ops.flash_attention`` on a CUDA tensor: dq, dk and dv
-from q, k, v, the forward's output and its gradient, for queries whose
-positions start at 0 against every key (training).  ``route`` picks the
+from q, k, v and the output's gradient, for queries whose positions start
+at 0 against every key (training).  ``route`` picks the
 route from the type, the head dim and the operands' alignment:
 
 - ``tensor_core``: bf16, hd 64 or 128, every operand 16-byte aligned (TMA):
@@ -12,8 +12,8 @@ route from the type, the head dim and the operands' alignment:
   fp32 on the CUDA cores, ``repro_torch/csrc/flash_attention_bwd.cu``.
 
 Both split the gradient into a dq pass and a dk/dv pass and recompute the
-rows' log-sum-exp rather than have the forward write it; each source
-states its bound and design.  The kernels are compiled with ``nvcc`` at
+rows' log-sum-exp and D = rowsum(P dP) rather than have the forward write
+them; each source states its bound and design.  The kernels are compiled with ``nvcc`` at
 first use (never at import) by ``repro_torch.kernels.nvcc`` and loaded
 with ``ctypes``.
 
@@ -69,22 +69,22 @@ def _load(which: str):
         if which == "tensor_core":
             lib = ctypes.CDLL(str(build(HOPPER_SOURCE)))
             fn = lib.flash_attention_tc_bwd
-            fn.argtypes = [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
         else:
             lib = ctypes.CDLL(str(build(SOURCE)))
             fn = lib.flash_attention_bwd
-            fn.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, i32, ptr]
+            fn.argtypes = [ptr] * 9 + [i32] * 9 + [ctypes.c_float, i32, ptr]
         fn.restype = ctypes.c_int
         _lib[which] = fn
     return _lib[which]
 
 
-def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
                              window: Optional[int] = None):
-    """Launch the route's backward on the current stream.  q, o, do (B,
-    Sq, H, hd); k, v (B, Sk, KV, hd) with H a multiple of KV; all
-    contiguous, of one type (float32 or bfloat16), on one card.  Returns
-    (dq, dk, dv) in that type."""
+    """Launch the route's backward on the current stream.  q, do (B, Sq,
+    H, hd); k, v (B, Sk, KV, hd) with H a multiple of KV; all contiguous,
+    of one type (float32 or bfloat16), on one card.  Returns (dq, dk, dv)
+    in that type."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
@@ -100,17 +100,17 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
         raise ValueError(f"batch {B} exceeds the grid's {MAX_BATCH}")
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, q {q.dtype} "
                             f"on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
-                         f"be q's shape {tuple(q.shape)}")
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    tensors = (q, k, v, o, do, dq, dk, dv)
+    tensors = (q, k, v, do, dq, dk, dv)
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
     which = route(q.dtype, hd, aligned=aligned)
     if B == 0 or Sq == 0 or H == 0 or Sk == 0:

@@ -44,23 +44,24 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
         o = _forward(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        # the backward recomputes what it needs of the forward from these
+        ctx.save_for_backward(q, k, v)
         ctx.masks = (causal, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v = ctx.saved_tensors
         causal, window = ctx.masks
-        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do.to(q.dtype)))
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do.to(q.dtype)))
         if q.device.type == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do,
-                                                  causal=causal, window=window)
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                                  window=window)
         else:
             lse = ref_lib.flash_attention_lse_ref(q, k, causal=causal,
                                                   window=window)
             dq, dk, dv = ref_lib.flash_attention_bwd_ref(
-                q, k, v, o, do, lse, causal=causal, window=window)
+                q, k, v, do, lse, causal=causal, window=window)
         return dq, dk, dv, None, None
 
 

@@ -12,7 +12,7 @@ split-K decode kernel does: the cache cut into chunks of ``chunk`` keys
 the merge.
 
 ``flash_attention_bwd_ref`` is the plain gradient that the backward kernel
-computes (dq, dk, dv from q, k, v, the output, its gradient and the rows'
+computes (dq, dk, dv from q, k, v, the output's gradient and the rows'
 log-sum-exp, ``flash_attention_lse_ref``), for queries whose positions
 start at 0 against every key, as training calls it."""
 from __future__ import annotations
@@ -70,14 +70,16 @@ def flash_attention_lse_ref(q, k, *, causal: bool = True,
     return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+def flash_attention_bwd_ref(q, k, v, do, lse, *, causal: bool = True,
                             window: Optional[int] = None):
     """The gradient of ``flash_attention_ref`` (``q_offset`` 0, every key
-    valid) at cotangent ``do``, from the output ``o`` and the log-sum-exp
-    ``lse`` (B, H, Sq): P = exp(s - lse), D = rowsum(do o), dS = P (do v^T
-    - D), dq = scale dS k, dk = scale dS^T q and dv = P^T do, summed over
-    the query heads of each KV head; fp32 math, each result in its input's
-    dtype."""
+    valid) at cotangent ``do``, from the log-sum-exp ``lse`` (B, H, Sq):
+    P = exp(s - lse), dP = do v^T, D = rowsum(P dP), dS = P (dP - D), dq =
+    scale dS k, dk = scale dS^T q and dv = P^T do, summed over the query
+    heads of each KV head; fp32 math, each result in its input's dtype.
+    D is softmax's own sum, not FlashAttention-2's rowsum(do o) from the
+    forward's output, which in bf16 swamps dS where a row's attention
+    spreads over many alike keys."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -87,8 +89,8 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     do32 = do.float()
     vr = v.repeat_interleave(rep, dim=2).float()
     kr = k.repeat_interleave(rep, dim=2).float()
-    delta = (do32 * o.float()).sum(-1).permute(0, 2, 1)       # (B, H, Sq)
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, vr)
+    delta = (p * dp).sum(-1)                                  # (B, H, Sq)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale

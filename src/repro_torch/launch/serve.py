@@ -10,7 +10,17 @@ arch's ``reduced()`` configuration, plus ``--device``.  ``serve()`` takes
 any configuration the port supports, at full width.  The weights are drawn
 from ``seed`` (the reference's ``PRNGKey(0)``) and the prompts and the
 sampling keys from ``seed + 1``, so the same seed gives the reference's
-tokens.
+tokens.  An encoder-decoder (Whisper) gets zero ``encoder_embeds`` of
+``encoder_seq`` frames and a vision model (LLaVA) zero ``image_embeds`` of
+``vision_tokens`` rows, float32, as the reference's CLI makes them.
+
+A vision prefix takes cache positions: the cache and the learned-position
+table hold ``vision_tokens + prompt_len + gen`` positions and decode starts
+at ``vision_tokens + prompt_len``.  The reference's CLI
+(``repro/launch/serve.py``) sizes its cache ``prompt_len + gen``, so its
+LLaVA prefill fails to write ``vision_tokens + prompt_len`` positions
+there; its model API (``cache_init(B, V + T)``, prefill, decode at ``V +
+t``) is what this follows.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     decode ``gen - 1`` more: the first token is greedy, the rest sampled
     at ``temperature`` (greedy at 0).  Times end in a device sync."""
     dev = resolve_device(device)
-    max_len = prompt_len + gen
+    max_len = cfg.vision_tokens + prompt_len + gen
     model = build_model(cfg, max_seq=max_len)
     t0 = time.perf_counter()
     params = model.init(random.PRNGKey(seed, dev))
@@ -57,9 +67,16 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     step = make_serve_step(model, window=window)
     rng = random.PRNGKey(seed + 1, dev)
     prompts = random.randint(rng, (batch, prompt_len), 0, cfg.vocab_size)
+    inputs = {"tokens": prompts}
+    if cfg.vision_tokens:
+        inputs["image_embeds"] = torch.zeros(
+            (batch, cfg.vision_tokens, cfg.d_model), device=dev)
+    if cfg.encoder_layers:
+        inputs["encoder_embeds"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), device=dev)
 
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, inputs)
     synchronize(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
 
@@ -67,7 +84,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     out = [tok]
     t0 = time.perf_counter()
     for t in range(gen - 1):
-        logits, cache = step(params, tok, cache, prompt_len + t)
+        logits, cache = step(params, tok, cache,
+                             cfg.vision_tokens + prompt_len + t)
         if temperature > 0:
             rng, k = random.split(rng)
             tok = random.categorical(k, logits / temperature)[:, None]

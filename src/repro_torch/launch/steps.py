@@ -3,6 +3,7 @@
 ``make_train_step``   — fwd + bwd + AdamW update (train_4k), in place
 ``make_prefill_step`` — full-context forward producing logits + KV cache
 ``make_serve_step``   — ONE new token against a seq_len KV cache (decode)
+``make_serve_step_encdec`` — the same, with the encoder's output passed in
 
 The train step's gradients come from autograd: on the card through the
 flash-attention and scan kernels' backward kernels, on the CPU through the
@@ -117,6 +118,10 @@ def make_train_step(model: Model, optimizer: Optional[opt_lib.Optimizer] = None,
 
 
 def make_prefill_step(model: Model, max_len: int):
+    """Prefill: a new cache of ``max_len`` positions, then the whole batch
+    (tokens, and ``image_embeds`` / ``encoder_embeds`` as they are) ->
+    the last position's logits and the filled cache.  With a vision prefix
+    ``max_len`` counts its positions too."""
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         cache = model.cache_init(tokens.shape[0], max_len,
@@ -132,6 +137,19 @@ def make_serve_step(model: Model, window: Optional[int] = None):
     (the cache is updated in place and returned)."""
     def serve_step(params, token, cache, cache_pos):
         batch = {"tokens": token}                      # (B, 1)
+        logits, cache, _ = model.apply(params, batch, mode="decode",
+                                       cache=cache, cache_pos=cache_pos,
+                                       window=window)
+        return logits[:, 0], cache
+    return serve_step
+
+
+def make_serve_step_encdec(model: Model, window: Optional[int] = None):
+    """One decode step of an encoder-decoder with the encoder's output
+    ``enc_out`` in the batch (cross-attention still reads the K/V that
+    prefill cached)."""
+    def serve_step(params, token, cache, cache_pos, enc_out):
+        batch = {"tokens": token, "enc_out": enc_out}
         logits, cache, _ = model.apply(params, batch, mode="decode",
                                        cache=cache, cache_pos=cache_pos,
                                        window=window)

@@ -8,12 +8,16 @@ for; without a card, ``cuda`` raises).
 
 As the reference's, it trains the arch's ``reduced()`` configuration
 (``--reduced`` is on by default and stays on) on synthetic Markov tokens,
-with AdamW under ``warmup_cosine(lr, 10, steps)``.
+with AdamW under ``warmup_cosine(lr, 10, steps)``.  A vision model gets
+zero ``image_embeds`` and an encoder-decoder zero ``encoder_embeds``
+(float32), as the reference's CLI gives them.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch import optim as opt_lib
 from repro_torch import random, tree
@@ -55,12 +59,21 @@ def main(argv=None):
     data = make_token_dataset(random.PRNGKey(1, dev),
                               n_seqs=args.batch * 8, seq_len=args.seq,
                               vocab=cfg.vocab_size)
+    extra = {}
+    if cfg.vision_tokens:
+        extra["image_embeds"] = torch.zeros(
+            (args.batch, cfg.vision_tokens, cfg.d_model), device=dev)
+    if cfg.encoder_layers:
+        extra["encoder_embeds"] = torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), device=dev)
+
     nb = data["tokens"].shape[0] // args.batch
     t0 = time.perf_counter()
     for step in range(args.steps):
         i = step % nb
         batch = {k: v[i * args.batch:(i + 1) * args.batch]
                  for k, v in data.items()}
+        batch.update(extra)
         state, metrics = train_step(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             synchronize(dev)

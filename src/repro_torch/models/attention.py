@@ -8,8 +8,14 @@ tensors through ``blockwise_attention``, the plain port of the reference's
 memory-bounded attention, which is also the numerical oracle the reference
 names for its kernel.  MLA calls ``blockwise_attention`` on every device,
 as the reference does: its heads (qk 192, v 128, 128 query heads on a
-latent) are no shape the kernel takes.  Cross-attention and the int8 KV
-cache are not ported yet (ROADMAP queue 1, item 12) and raise.
+latent) are no shape the kernel takes.
+
+Cross-attention (Whisper's decoder over the encoder's output) computes its
+K/V from ``kv_source`` without RoPE; prefill stores them in the layer's
+``{"ck", "cv"}`` cache (bf16) and decode attends over them there.  The
+int8 KV cache (``gqa_cache_init(quantized=True)``) stores int8 values and
+one bf16 scale per (position, KV head) and is dequantized before attention,
+as the reference's, so the kernel still sees the model's type.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.models import modules as nn
 
 NEG_INF = -1e30
 _NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 12)"
+QUANT_MAX = 127.0                 # int8 cache: symmetric, [-127, 127]
 
 Length = Union[None, int, torch.Tensor]
 
@@ -90,8 +97,8 @@ def _attend(q, k, v, *, causal: bool, window: Optional[int],
 
 # ------------------------------------------------------------------ GQA --
 def gqa_init(key, cfg: ArchConfig, *, cross: bool = False):
-    if cross:
-        raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
+    """The four projections; ``cross`` names the use (cross-attention) and
+    changes nothing, as in the reference."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     r = random.split(key, 4)
@@ -105,12 +112,32 @@ def gqa_init(key, cfg: ArchConfig, *, cross: bool = False):
 def gqa_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16, quantized: bool = False, *, device):
     """KV cache, bf16 by default whatever the model's dtype (as the
-    reference's)."""
-    if quantized:
-        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+    reference's).  ``quantized=True`` stores int8 values and one bf16 scale
+    per (position, KV head)."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """x: (B, S, KV, hd) -> (int8 values, bf16 per-(position, head) scale).
+    The values are rounded (half to even, as ``jnp.round``) against the
+    float32 scale, which is rounded to bf16 only when it is returned."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1) / QUANT_MAX).clamp(min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-QUANT_MAX, QUANT_MAX)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def _write_at(buf, val, pos):
@@ -142,26 +169,54 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
               window: Optional[int] = None, cross: bool = False):
     """Returns (y, new_cache).  Prefill and decode write the new K/V into
     ``cache`` in place and return it: the reference donates the cache to
-    its serving step, so no caller keeps the old one."""
-    if cross or kv_source is not None:
-        raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError(f"the int8 KV cache {_NOT_PORTED}")
+    its serving step, so no caller keeps the old one.  ``kv_source``: the
+    encoder's output for cross-attention (None at decode, where the cross
+    K/V come from the cache that prefill filled)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     q = nn.dense_apply(p["wq"], x).reshape(B, S, H, hd)
-    k = nn.dense_apply(p["wk"], x).reshape(B, S, KV, hd)
-    v = nn.dense_apply(p["wv"], x).reshape(B, S, KV, hd)
-    if cfg.pos_emb == "rope":
+    cross = cross or kv_source is not None
+    cached_cross = (cross and mode == "decode" and cache is not None
+                    and "ck" in cache)
+    if not cached_cross:           # cross K/V are never recomputed at decode
+        src = x if kv_source is None else kv_source
+        k = nn.dense_apply(p["wk"], src).reshape(B, src.shape[1], KV, hd)
+        v = nn.dense_apply(p["wv"], src).reshape(B, src.shape[1], KV, hd)
+    if cfg.pos_emb == "rope" and not cross:
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "decode":
+    if cached_cross:
+        # the encoder's K/V, computed once at prefill
+        out = _attend(q, cache["ck"].to(q.dtype), cache["cv"].to(q.dtype),
+                      causal=False, window=None, q_block=8)
+    elif cross:
+        out = _attend(q, k, v, causal=False, window=None,
+                      q_block=min(1024, max(8, S)))
+        if mode == "prefill" and cache is not None and "ck" in cache:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    elif mode == "decode":
         # write this step's k/v at cache_pos, attend over the valid prefix
-        _write_at(cache["k"], k, cache_pos)
-        _write_at(cache["v"], v, cache_pos)
+        quantized = "k_scale" in cache
+        if quantized:
+            for name, val in (("k", k), ("v", v)):
+                vq, vs = _quantize_kv(val)
+                _write_at(cache[name], vq, cache_pos)
+                _write_at(cache[name + "_scale"], vs, cache_pos)
+        else:
+            _write_at(cache["k"], k, cache_pos)
+            _write_at(cache["v"], v, cache_pos)
         kv_len = cache_pos + 1
+
+        def read(name, start=None, length=None):
+            buf, sc = cache[name], cache.get(name + "_scale")
+            if start is not None:
+                buf = _slice_at(buf, start, length)
+                sc = None if sc is None else _slice_at(sc, start, length)
+            return buf if sc is None else _dequantize_kv(buf, sc, k.dtype)
+
         if window is not None:
             # only read the last `window` positions (sliding window decode)
             win = min(window, cache["k"].shape[1])     # short caches
@@ -170,18 +225,23 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
                 kv_len = kv_len.clamp(max=win)
             else:
                 start, kv_len = max(kv_len - win, 0), min(kv_len, win)
-            out = _attend(q, _slice_at(cache["k"], start, win),
-                          _slice_at(cache["v"], start, win), causal=False,
-                          window=None, kv_len=kv_len, q_block=8)
+            out = _attend(q, read("k", start, win), read("v", start, win),
+                          causal=False, window=None, kv_len=kv_len, q_block=8)
         else:
-            out = _attend(q, cache["k"], cache["v"], causal=False,
+            out = _attend(q, read("k"), read("v"), causal=False,
                           window=None, kv_len=kv_len, q_block=8)
     else:  # train / prefill: full causal; encoder: bidirectional
         out = _attend(q, k, v, causal=(mode != "encode"), window=window,
                       q_block=min(1024, max(8, S)))
         if mode == "prefill" and cache is not None:
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            if "k_scale" in cache:
+                for name, val in (("k", k), ("v", v)):
+                    vq, vs = _quantize_kv(val)
+                    cache[name][:, :S] = vq
+                    cache[name + "_scale"][:, :S] = vs
+            else:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
     y = nn.dense_apply(p["wo"], out.reshape(B, S, H * hd))
     return y, cache
 

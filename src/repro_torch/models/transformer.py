@@ -1,14 +1,16 @@
-"""The decoder stack: the port of ``repro/models/transformer.py`` for
-block patterns of attention (GQA, or MLA where the arch sets it) and Mamba
-layers, each with a dense FFN or a mixture of experts (OLMo, Granite,
-Qwen1.5, Jamba, DeepSeek-V2, Arctic).
+"""The decoder and encoder-decoder stack: the port of
+``repro/models/transformer.py`` for block patterns of attention (GQA, or
+MLA where the arch sets it) and Mamba layers, each with a dense FFN or a
+mixture of experts (OLMo, Granite, Qwen1.5, Jamba, DeepSeek-V2, Arctic),
+Whisper's encoder, cross-attention and learned positions, and LLaVA's
+vision prefix.
 
 Layers are grouped by the arch's repeating ``block_pattern`` and the
-group params are *stacked* along a leading axis (``num_groups``), as in the
-reference, so a parameter tree carries across as a copy; the reference's
-``lax.scan`` over that axis is a loop here.  xLSTM, encoder-decoder,
-vision prefixes, cross-attention and learned positions are not ported yet
-and raise in ``build_model`` (ROADMAP queue 1, item 12).
+group params are *stacked* along a leading axis (``num_groups``; the
+encoder's layers along ``encoder_layers``), as in the reference, so a
+parameter tree carries across as a copy; the reference's ``lax.scan`` over
+that axis is a loop here.  xLSTM blocks are not ported yet and raise in
+``build_model`` (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -73,18 +75,36 @@ def _has_moe(cfg: ArchConfig, sub_idx: int) -> bool:
         if cfg.moe.every_n_layers > 1 else True
 
 
+def _has_cross(cfg: ArchConfig, sub_idx: int) -> bool:
+    return cfg.cross_attention and cfg.block_pattern[sub_idx] == "attn"
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's layers: attention and a dense FFN, as the
+    reference's."""
+    return dataclasses.replace(cfg, block_pattern=("attn",),
+                               cross_attention=False, moe=None, mla=None)
+
+
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
     """What of ``cfg`` the port lacks, or None."""
     kinds = sorted(set(cfg.block_pattern) - set(_MIXERS))
-    if kinds:
-        return f"{'/'.join(kinds)} blocks"
-    for what, present in (("an encoder", cfg.encoder_layers > 0),
-                          ("cross-attention", cfg.cross_attention),
-                          ("a vision prefix", cfg.vision_tokens > 0),
-                          ("learned positions", cfg.pos_emb == "learned")):
-        if present:
-            return what
-    return None
+    return f"{'/'.join(kinds)} blocks" if kinds else None
+
+
+def _stacked(init_fn, keys) -> Dict[str, Any]:
+    """``init_fn(key)`` for each key, stacked leaf by leaf along a new
+    leading axis (the reference's vmap over the keys), each copy let go
+    once stacked: the weights are held once, plus one leaf's stack."""
+    trees = [init_fn(k) for k in keys]
+    treedef = tree.structure(trees[0])
+    trees = [tree.leaves(t) for t in trees]
+    stacked = []
+    for i in range(len(trees[0])):
+        stacked.append(torch.stack([t[i] for t in trees]))
+        for t in trees:
+            t[i] = None
+    return tree.unflatten(treedef, stacked)
 
 
 # ---------------------------------------------------------------- init --
@@ -96,6 +116,10 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
                               device=dev),
         "mixer": _mixer(cfg, sub_idx).init(r[0], cfg),
     }
+    if _has_cross(cfg, sub_idx):
+        p["norm_x"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                   device=dev)
+        p["cross"] = attn.gqa_init(r[1], cfg, cross=True)
     if _has_moe(cfg, sub_idx) or cfg.ffn != "none":
         p["norm2"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                   device=dev)
@@ -109,18 +133,36 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
 
 def _cache_sublayer(cfg: ArchConfig, sub_idx: int, batch: int,
                     max_len: int, quantized: bool, device):
-    return _mixer(cfg, sub_idx).cache_init(
+    own = _mixer(cfg, sub_idx).cache_init(
         cfg, batch, max_len, quantized=quantized, device=device)
+    if not _has_cross(cfg, sub_idx):
+        return own
+    # the cross K/V, computed once at prefill and read at every decode step
+    shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"self": own,
+            "cross": {n: torch.zeros(shape, dtype=torch.bfloat16,
+                                     device=device) for n in ("ck", "cv")}}
 
 
 def _apply_sublayer(p, x, *, cfg: ArchConfig, sub_idx: int, mode: str,
-                    positions, cache_entry, cache_pos, window):
-    """Returns (x, new cache, the layer's MoE aux loss or None)."""
+                    positions, cache_entry, cache_pos, window, enc_out):
+    """Returns (x, the layer's cache entry, the layer's MoE aux loss or
+    None).  A layer with cross-attention keeps its cache as {"self",
+    "cross"}."""
+    nested = "cross" in p and cache_entry is not None
     h = nn.norm_apply(cfg.norm, p["norm1"], x)
-    y, new_cache = _mixer(cfg, sub_idx).apply(
+    y, _ = _mixer(cfg, sub_idx).apply(
         p["mixer"], h, cfg=cfg, mode=mode, positions=positions,
-        cache=cache_entry, cache_pos=cache_pos, window=window)
+        cache=cache_entry["self"] if nested else cache_entry,
+        cache_pos=cache_pos, window=window)
     x = x + y
+    if "cross" in p:
+        h = nn.norm_apply(cfg.norm, p["norm_x"], x)
+        y, _ = attn.gqa_apply(p["cross"], h, cfg=cfg, mode=mode,
+                              positions=positions, kv_source=enc_out,
+                              cache=cache_entry["cross"] if nested else None,
+                              cross=True)
+        x = x + y
     aux = None
     if "moe" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
@@ -129,7 +171,7 @@ def _apply_sublayer(p, x, *, cfg: ArchConfig, sub_idx: int, mode: str,
     elif "ffn" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
         x = x + nn.ffn_apply(cfg.ffn, p["ffn"], h)
-    return x, new_cache, aux
+    return x, cache_entry, aux
 
 
 # ---------------------------------------------------------------- model --
@@ -141,37 +183,43 @@ class Model:
     # ---------------- params ----------------
     def init(self, key) -> Dict[str, Any]:
         """The reference's key schedule, so the same seed gives the same
-        weights: split(key, 8); the groups from split(r[3], num_groups),
-        each split per sublayer."""
+        weights: split(key, 8); learned positions from r[2] (``max_seq``
+        rows); the groups from split(r[3], num_groups), each split per
+        sublayer; the encoder's layers from split(r[4], encoder_layers)
+        and its positions from r[5] (``max(encoder_seq, 8)`` rows)."""
         cfg = self.cfg
+        dev = key.device
         r = random.split(key, 8)
         params: Dict[str, Any] = {
             "embed": nn.embedding_init(r[0], cfg.vocab_size, cfg.d_model,
                                        cfg.param_dtype),
             "final_norm": nn.norm_init(cfg.norm, cfg.d_model,
-                                       cfg.param_dtype, device=key.device),
+                                       cfg.param_dtype, device=dev),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = nn.dense_init(r[1], cfg.d_model,
                                               cfg.vocab_size,
                                               dtype=cfg.param_dtype)
+        if cfg.pos_emb == "learned":
+            params["pos_embed"] = nn.embedding_init(
+                r[2], self.max_seq, cfg.d_model, cfg.param_dtype)
 
         def init_group(key_g):
             rs = random.split(key_g, cfg.group_size)
             return {f"sub{i}": _init_sublayer(rs[i], cfg, i)
                     for i in range(cfg.group_size)}
 
-        groups = [init_group(kg) for kg in random.split(r[3], cfg.num_groups)]
-        treedef = tree.structure(groups[0])
-        groups = [tree.leaves(g) for g in groups]
-        # stacked leaf by leaf, each group's copy let go once stacked: the
-        # weights are held once, plus one leaf's stack
-        stacked = []
-        for i in range(len(groups[0])):
-            stacked.append(torch.stack([g[i] for g in groups]))
-            for g in groups:
-                g[i] = None
-        params["groups"] = tree.unflatten(treedef, stacked)
+        params["groups"] = _stacked(init_group,
+                                    random.split(r[3], cfg.num_groups))
+        if cfg.encoder_layers:
+            enc_cfg = _encoder_cfg(cfg)
+            params["encoder"] = _stacked(
+                lambda k: _init_sublayer(k, enc_cfg, 0),
+                random.split(r[4], cfg.encoder_layers))
+            params["enc_pos"] = nn.embedding_init(
+                r[5], max(cfg.encoder_seq, 8), cfg.d_model, cfg.param_dtype)
+            params["enc_norm"] = nn.norm_init(cfg.norm, cfg.d_model,
+                                              cfg.param_dtype, device=dev)
         return params
 
     # ---------------- cache ----------------
@@ -184,14 +232,45 @@ class Model:
         return tree.map(lambda a: a.new_zeros((cfg.num_groups, *a.shape)),
                         one_group)
 
+    # ---------------- encoder ----------------
+    def _encode(self, params, enc_embeds):
+        """enc_embeds: (B, enc_S, d), the stubbed frontend's frames ->
+        the encoder's output (B, enc_S, d) in ``param_dtype``.  The frames
+        plus learned positions are cast to ``param_dtype``, as the
+        decoder's input is; the reference adds them in the frames' type
+        and lets float32 frames promote a bf16 encoder to float32, which
+        torch's products refuse.  Bidirectional attention, each layer's
+        FFN, then ``enc_norm``; no activation checkpointing, as the
+        reference's."""
+        cfg = self.cfg
+        enc_cfg = _encoder_cfg(cfg)
+        S = enc_embeds.shape[1]
+        pos = torch.arange(S, device=enc_embeds.device)
+        x = enc_embeds + nn.embedding_apply(params["enc_pos"], pos)[None]
+        x = x.to(cfg.param_dtype)
+        for i in range(cfg.encoder_layers):
+            lp = tree.map(lambda a: a[i], params["encoder"])
+            h = nn.norm_apply(cfg.norm, lp["norm1"], x)
+            y, _ = attn.gqa_apply(lp["mixer"], h, cfg=enc_cfg, mode="encode",
+                                  positions=pos[None])
+            x = x + y
+            h = nn.norm_apply(cfg.norm, lp["norm2"], x)
+            x = x + nn.ffn_apply(cfg.ffn, lp["ffn"], h)
+        return nn.norm_apply(cfg.norm, params["enc_norm"], x)
+
     # ---------------- main apply ----------------
     def apply(self, params, batch: Dict[str, Any], *, mode: str,
               cache=None, cache_pos=None, window: Optional[int] = None):
         """Returns (logits, new_cache, aux_loss); logits in float32 for
-        every position, aux_loss the sum of the MoE layers' (0 without).
-        ``cache_pos`` (decode) is an int or a (B,) tensor.  In train mode
-        with grad enabled each group runs under activation checkpointing,
-        as the reference's.  The cache is written in place (see
+        every text position, aux_loss the sum of the MoE layers' (0
+        without).  ``batch``: tokens (B, S); ``image_embeds`` (B, V, d),
+        put ahead of the tokens outside decode (the vision prefix, whose
+        logits are dropped); ``encoder_embeds`` (B, enc_S, d) for an
+        encoder-decoder outside decode, ``enc_out`` optional at decode
+        (cross-attention reads the K/V prefill cached).  ``cache_pos``
+        (decode) is an int or a (B,) tensor.  In train mode with grad
+        enabled each group runs under activation checkpointing, as the
+        reference's.  The cache is written in place (see
         ``attention.gqa_apply`` and ``ssm.mamba_apply``): each group's
         entries are views into it."""
         cfg = self.cfg
@@ -200,21 +279,34 @@ class Model:
         dev = tokens.device
         x = nn.embedding_apply(params["embed"], tokens)
 
+        n_prefix = 0
+        if cfg.vision_tokens and mode != "decode":
+            img = batch["image_embeds"].to(x.dtype)
+            n_prefix = img.shape[1]
+            x = torch.cat([img, x], dim=1)
+
         if mode == "decode" and isinstance(cache_pos, torch.Tensor):
             positions = cache_pos.expand(B)[:, None]
         elif mode == "decode":          # a fill on the device, no host copy
             positions = torch.full((B, 1), cache_pos, device=dev)
         else:
-            positions = torch.arange(S, device=dev)[None]
+            positions = torch.arange(x.shape[1], device=dev)[None]
+        if cfg.pos_emb == "learned":
+            x = x + nn.embedding_apply(params["pos_embed"], positions.long())
         x = x.to(cfg.param_dtype)
 
-        def group_body(x, aux, gparams, gcache):
+        enc_out = None
+        if cfg.encoder_layers:
+            enc_out = (batch.get("enc_out") if mode == "decode"
+                       else self._encode(params, batch["encoder_embeds"]))
+
+        def group_body(x, aux, gparams, gcache, enc_out):
             for i in range(cfg.group_size):
                 x, _, a = _apply_sublayer(
                     gparams[f"sub{i}"], x, cfg=cfg, sub_idx=i, mode=mode,
                     positions=positions,
                     cache_entry=None if gcache is None else gcache[f"sub{i}"],
-                    cache_pos=cache_pos, window=window)
+                    cache_pos=cache_pos, window=window, enc_out=enc_out)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -230,17 +322,17 @@ class Model:
                 # the reference's jax.checkpoint(group_body): a group's
                 # activations are recomputed in the backward, not kept
                 x, aux = checkpoint(group_body, x, aux, gparams, gcache,
-                                    use_reentrant=False,
+                                    enc_out, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
-                x, aux = group_body(x, aux, gparams, gcache)
+                x, aux = group_body(x, aux, gparams, gcache, enc_out)
 
         x = nn.norm_apply(cfg.norm, params["final_norm"], x)
         if cfg.tie_embeddings:
             logits = nn.embedding_attend(params["embed"], x)
         else:
             logits = nn.dense_apply(params["lm_head"], x)
-        return logits.float(), cache, aux
+        return logits[:, n_prefix:].float(), cache, aux
 
 
 def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
@@ -248,6 +340,7 @@ def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
     if missing is not None:
         raise NotImplementedError(
             f"{cfg.name}: {missing} not ported yet (ROADMAP queue 1, "
-            f"item 12); the port serves attention (GQA or MLA) and mamba "
-            f"layers with a dense FFN or experts")
+            f"item 12); the port builds attention (GQA or MLA, with "
+            f"cross-attention and an encoder) and mamba layers with a dense "
+            f"FFN or experts")
     return Model(cfg=cfg, max_seq=max_seq)

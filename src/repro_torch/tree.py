@@ -11,6 +11,13 @@ def leaves(tree) -> List[Any]:
     return [tree]
 
 
+def paths(tree, prefix: str = "") -> List[str]:
+    """'/'-joined key paths of the leaves, in leaf order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
 def structure(tree):
     """The tree with every leaf replaced by None (a treedef)."""
     if isinstance(tree, dict):

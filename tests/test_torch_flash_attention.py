@@ -192,7 +192,7 @@ def test_backward_wrapper_takes_cuda_tensors_only():
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fb
     q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        fb.flash_attention_bwd_cuda(q, q, q, q, q)
+        fb.flash_attention_bwd_cuda(q, q, q, q)
     assert fb.launches == 0 and fb.route_launches == {
         "tensor_core": 0, "cuda_core": 0}
 

@@ -76,11 +76,40 @@ def test_flash_attention_bwd_ref_matches_the_reference_vjp(
     lse = fa_ref.flash_attention_lse_ref(tq, tk, causal=causal, window=window)
     to = fa_ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     assert _err(to, o) < 1e-5
-    got = fa_ref.flash_attention_bwd_ref(tq, tk, tv, to, tdo, lse,
+    got = fa_ref.flash_attention_bwd_ref(tq, tk, tv, tdo, lse,
                                          causal=causal, window=window)
     for g, w, t in zip(got, want, (tq, tk, tv)):
         assert g.shape == t.shape and g.dtype == torch.float32
         assert _err(g, w) < 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (2, 64, 600, 4, 4, 64, False), (1, 160, 160, 4, 2, 128, True)])
+@pytest.mark.parametrize("spread", [0.01, 0.05])
+def test_flash_attention_bwd_ref_holds_when_keys_are_alike(
+        B, Sq, Sk, H, KV, hd, causal, spread):
+    """Keys a few percent apart (a deep encoder's frames, as Whisper's
+    cross-attention reads them) spread each row's attention evenly, so dS
+    = P (dP - D) is a difference of near-equal numbers.  bf16 inputs; the
+    plain backward against torch autograd through the forward in float32
+    on the same inputs, within 2^-7 of each gradient's largest entry (the
+    results are rounded to bf16).  D taken from the bf16 output, as
+    FlashAttention-2 takes it, misses by ~9e-2 and ~0.4 of dq's largest
+    entry at these spreads (tools/flash_bwd_accuracy.py cpu)."""
+    g = torch.Generator().manual_seed(Sk + Sq)
+    q = torch.randn(B, Sq, H, hd, generator=g).bfloat16()
+    k = (torch.randn(1, 1, KV, hd, generator=g)
+         + spread * torch.randn(B, Sk, KV, hd, generator=g)).bfloat16()
+    v = torch.randn(B, Sk, KV, hd, generator=g).bfloat16()
+    do = torch.randn(B, Sq, H, hd, generator=g).bfloat16()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o = fa_ref.flash_attention_ref(*leaves, causal=causal)
+    want = torch.autograd.grad(o, leaves, do.float())
+    lse = fa_ref.flash_attention_lse_ref(q, k, causal=causal)
+    got = fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, causal=causal)
+    for gr, w in zip(got, want):
+        assert gr.dtype == torch.bfloat16
+        assert _err(gr.float(), w.numpy()) < 2 ** -7
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window", FA_CASES)

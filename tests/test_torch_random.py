@@ -172,3 +172,38 @@ def test_only_float32_uniform_and_normal_draws():
     for draw in (R.uniform, R.normal):
         with pytest.raises(NotImplementedError, match="float32"):
             draw(R.PRNGKey(0, "cpu"), (3,), torch.bfloat16)
+
+
+NORMAL_DRAWS = """
+import sys
+import numpy as np
+import torch
+from repro_torch import random as R
+out = {"threads": np.int64(torch.get_num_threads())}
+for seed in (0, 1, 42):
+    out[f"s{seed}"] = R.normal(R.PRNGKey(seed, "cpu"), (512, 256)).numpy()
+np.savez(sys.argv[1], **out)
+"""
+
+
+def test_normal_at_torch_default_thread_count(tmp_path):
+    """The draws of a fresh process that keeps torch's own thread count
+    (this file pins 2 threads), against JAX's, within erfinv's rounding."""
+    import os
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in [env.get("PYTHONPATH")] if p])
+    path = tmp_path / "draws.npz"
+    subprocess.run([sys.executable, "-c", NORMAL_DRAWS, str(path)], env=env,
+                   check=True, timeout=120)
+    got = np.load(path)
+    assert int(got["threads"]) >= 1
+    for seed in (0, 1, 42):
+        want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed),
+                                            (512, 256)))
+        np.testing.assert_allclose(got[f"s{seed}"], want, rtol=1e-6, atol=1e-6,
+                                   err_msg=f"{int(got['threads'])} threads")

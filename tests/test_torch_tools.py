@@ -25,8 +25,10 @@ def _run(argv, cwd):
     ["tools/run_phase.py", "3b"], ["tools/run_phase.py", "4c"],
     ["tools/run_phase.py", "19"], ["tools/run_phase.py", "20"],
     ["tools/run_phase.py", "17"], ["tools/run_phase.py", "18"],
+    ["tools/run_phase.py", "22"], ["tools/run_phase.py", "24,25"],
     ["tools/ssm_scan_bwd_ablation.py"],
     ["tools/flash_attention_bwd_ablation.py"],
+    ["tools/flash_bwd_accuracy.py"], ["tools/flash_bwd_accuracy.py", "model"],
     ["tools/conv_wgrad_layouts.py"]])
 def test_tools_fail_without_a_card(argv):
     if torch.cuda.is_available():

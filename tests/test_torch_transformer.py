@@ -68,7 +68,8 @@ from repro_torch.models.transformer import build_model  # noqa: E402
 B, T0, T = 2, 8, 16
 JAMBA = "jamba-v0.1-52b"
 MOE_ARCHS = ["jamba-v0.1-52b", "deepseek-v2-236b", "arctic-480b"]
-SUPPORTED = ["olmo-1b", "qwen1.5-4b", "granite-8b", "qwen1.5-110b"] + MOE_ARCHS
+SUPPORTED = (["olmo-1b", "qwen1.5-4b", "granite-8b", "qwen1.5-110b"]
+             + MOE_ARCHS + ["whisper-medium", "llava-next-mistral-7b"])
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 

@@ -49,10 +49,10 @@ EDITS = {
         [("  using L = DqSmem<HD>;",
           "  if (p.Sq > 0) return;\n  using L = DqSmem<HD>;")]),
     "no lse pass": (
-        "the dq kernel's first pass (Q K^T for the rows' log-sum-exp) left "
-        "out: one product in 8",
-        [("for (int pass = 0; pass < 2; ++pass)",
-          "for (int pass = 1; pass < 2; ++pass)"),
+        "the dq kernel's first pass (Q K^T and dO V^T for the rows' "
+        "log-sum-exp and D) left out: two products in 9",
+        [("for (int it = 0; it < 2 * n_tiles; ++it) {",
+          "for (int it = 0; it < n_tiles; ++it) {"),
          ("  int it = 0;\n  for (int t = 0; t < n_tiles; ++t, ++it) {",
           "  int it = 0;\n  for (int t = 0; t < 0; ++t, ++it) {")]),
     "producer 40 registers": (
@@ -121,7 +121,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd as fb, ops, ref)
+        flash_attention_bwd as fb, ref)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
@@ -132,30 +132,30 @@ def main() -> int:
         fb.build = lambda source, lib=lib: lib
         loaded[name] = fb._load("tensor_core")
 
-    def run(name, q, k, v, o, do, kw):
+    def run(name, q, k, v, do, kw):
         fb._lib = {"tensor_core": loaded[name]}
-        return fb.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        return fb.flash_attention_bwd_cuda(q, k, v, do, **kw)
 
     gen = torch.Generator(device="cuda").manual_seed(17)
 
-    def inputs(B, S, H, KV, hd, causal, window):
-        q = torch.randn(B, S, H, hd, device="cuda", generator=gen)
-        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen)
+    def inputs(B, Sq, Sk, H, KV, hd, causal, window):
+        q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen)
+        k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
                 for _ in range(2))
-        do = torch.randn(B, S, H, hd, device="cuda", generator=gen)
+        do = torch.randn(B, Sq, H, hd, device="cuda", generator=gen)
         q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         kw = dict(causal=causal, window=window)
-        return q, k, v, ops.flash_attention(q, k, v, **kw), do, kw
+        return q, k, v, do, kw
 
     tol = cs.FA_BWD_TOL[cs.BF16]
-    for shape in ((2, 300, 8, 2, 128, True, 100),
-                  (3, 77, 8, 2, 64, False, 32)):
-        q, k, v, o, do, kw = inputs(*shape)
+    for shape in ((2, 300, 300, 8, 2, 128, True, 100),
+                  (3, 77, 77, 8, 2, 64, False, 32)):
+        q, k, v, do, kw = inputs(*shape)
         lse = ref.flash_attention_lse_ref(q, k, **kw)
-        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
         for name in CHECKED:
             errs = [cs.rel_to_largest(g, w)
-                    for g, w in zip(run(name, q, k, v, o, do, kw), want)]
+                    for g, w in zip(run(name, q, k, v, do, kw), want)]
             print(f"  {name} at {shape}: dq, dk, dv errors "
                   f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:.3g})")
             cs.check(all(e <= tol for e in errs),

@@ -11,6 +11,8 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 20 [TREE]      # a train step (or 19)
     python3 tools/run_phase.py 17 [TREE]      # flash_attention's backward
     python3 tools/run_phase.py 18 [TREE]      # ssm_scan's backward
+    python3 tools/run_phase.py 22 [TREE]      # a phase of 22-27 (or several:
+                                              # 24,25)
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -36,6 +38,11 @@ in two processes, they show whether a train step reproduces.  ``17`` and
 plain version, then timed at the train shapes (flash on its route, with
 SDPA's backward beside it), so a parent's backward kernels and this
 tree's can be timed in one call (trees whose ``chip_smoke.py`` has them).
+``22`` to ``27`` (comma-separated for several) run those phases of the
+tree's ``chip_smoke.py`` (trees from the one that added them on):
+flash's forward at Whisper-medium's and LLaVA-NeXT's shapes, its backward
+where queries and keys differ in number, serving and training
+Whisper-medium, serving LLaVA-NeXT, and the int8 KV cache at OLMo-1B.
 """
 from __future__ import annotations
 
@@ -46,7 +53,10 @@ from pathlib import Path
 
 def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19", "20"):
+    slice_phases = set(phase.split(",")) <= {"22", "23", "24", "25", "26",
+                                             "27"}
+    if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
+                     "20") and not slice_phases:
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -78,6 +88,24 @@ def main() -> int:
             torch, (bwo_evolve, flash_attention, ssm_scan,
                     flash_attention_bwd, ssm_scan_bwd),
             *cs.train_cells()[phase])
+    elif slice_phases:
+        import subprocess
+        import time
+        from repro_torch.kernels.bwo_evolve import bwo_evolve
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_bwd)
+        from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+        print(smi)
+        out = cs.slice_phases(
+            torch, (bwo_evolve, flash_attention, ssm_scan,
+                    flash_attention_bwd, ssm_scan_bwd), mem, bf16, smi,
+            time.perf_counter(), only=set(phase.split(",")))
+        times = {k: v.get("shapes", v) if isinstance(v, dict) else v[-1]
+                 for k, v in out.items()}
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
