@@ -168,13 +168,38 @@ Phases, each printing its own lines; any failure exits non-zero:
     steps) against the bf16 cache on the same weights and tokens: the
     reference's int8 tolerance in units of the logits' RMS, both caches'
     bytes and decode ms a step.
-Phases 22-27 each print their seconds and the card's name and power limit
-(``python3 tools/run_phase.py 22,...,27`` runs any of them alone).
+28. serving xLSTM-1.3B at full width and depth (``serve(get_arch(
+    "xlstm-1.3b"), batch=4, prompt_len=1024, gen=32)``; tree 3,527,610,688,
+    the state cache's bytes): no kernel launches, since the reference has
+    no kernel for the mLSTM and sLSTM; 28b. its decode against the full
+    forward (prefill 896, 128 steps teacher-forced, batch 2) on float32
+    weights, each step within 2^-6 of its largest logit, and the same
+    weights in bf16 printed beside it;
+29. training xLSTM-1.3B at full width cut to 12 layers (4 x 1024, as
+    phase 19, no launches); 29b. the reduced step card against CPU;
+30. the continuous-batching server (``serving.BatchedServer``) at
+    full-width OLMo-1B: 4 slots, a 1152-position cache, 10 requests of
+    seeded prompts (37 to 1024 tokens, 16 to 128 new), one freed slot
+    passing the cache's end; every request's tokens against a B = 1 replay
+    on the card (the argmax or a near-tie within 2^-6), flash's calls by
+    route (prefills on the tensor cores, steps split-K with a (B,)
+    kv_len); 30a. flash at those shapes, the per-row kv_len decode timed
+    beside SDPA with the matching boolean mask;
+31. the same server at Jamba without experts, 8 layers, 3 slots, 6
+    requests (``ssm_scan``: a prefill per Mamba layer and request, a
+    decode per Mamba layer and step); 31a. the scan at those shapes;
+32. training LLaVA-NeXT at full width cut to 8 layers (4 x (2880 seeded
+    image rows + 32 tokens): 16 flash forwards and 8 backwards a step on
+    the tensor cores); 32a. the backward at that shape beside SDPA's.
+Phases 22-32 each print their seconds and the card's name and power limit
+(``python3 tools/run_phase.py 22,...,27`` or ``28,...,32`` runs any of
+them alone); the script prints its total before the kernels line.
 
 It then prints a JSON line of the new paths' numbers, one JSON line
 describing every ported kernel (``launches`` summed over the paths that
-run it, serving and one train step of each model, flash's per path in
-``route_launches``), the backward kernels included, and as the last line
+run it, serving, the servers and one train step of each model, flash's
+per path in ``route_launches``), the backward kernels included, and as
+the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it fails and prints no
 result.
@@ -267,6 +292,7 @@ SSM_TEST_CASES = [(2, 128, 64, 16), (1, 64, 256, 8), (2, 96, 32, 16),
                   (1, 200, 48, 4)]
 SSM_SHAPES = ([c + (h0,) for c in SSM_TEST_CASES for h0 in (False, True)]
               + [JAMBA_DECODE, JAMBA_PREFILL])
+SSM_TIMED = (("prefill", JAMBA_PREFILL), ("decode", JAMBA_DECODE))
 SSM_TOL = 1e-4
 SSM_FLOPS = 7                # fp32 operations per (b, t, d, n) besides exp
 
@@ -277,16 +303,31 @@ def check(cond, msg):
 
 
 def valid_pairs(Sq, Sk, causal, window, q_offset, kv_len):
-    """(query, key) pairs the attention mask keeps, per batch row and head."""
+    """(query, key) pairs the attention mask keeps, and the keys some query
+    sees, per batch row and head: the mean over the rows where ``kv_len``
+    is a tuple of per-row lengths."""
     import torch
     q = q_offset + torch.arange(Sq)[:, None]
     k = torch.arange(Sk)[None, :]
-    keep = (k < (Sk if kv_len is None else kv_len)).expand(Sq, Sk)
-    if causal:
-        keep = keep & (k <= q)
-    if window is not None:
-        keep = keep & (k > q - window)
-    return int(keep.sum()), int(keep.any(0).sum())
+    counts = []
+    for n in (kv_len if isinstance(kv_len, tuple) else (kv_len,)):
+        keep = (k < (Sk if n is None else n)).expand(Sq, Sk)
+        if causal:
+            keep = keep & (k <= q)
+        if window is not None:
+            keep = keep & (k > q - window)
+        counts.append((int(keep.sum()), int(keep.any(0).sum())))
+    if len(counts) == 1:
+        return counts[0]
+    return tuple(sum(c) / len(counts) for c in zip(*counts))
+
+
+def kv_len_arg(torch, kv_len):
+    """A shape's kv_len as the kernel takes it: a tuple of per-row lengths
+    becomes a (B,) int32 tensor on the card."""
+    if isinstance(kv_len, tuple):
+        return torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return kv_len
 
 
 def card_rates(name):
@@ -428,7 +469,8 @@ def flash_phase(torch, mem_rate, bf16_rate,
         q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dtypes[qdt])
         k, v = (torch.randn(B, Sk, KV, hd, device="cuda", generator=gen)
                 .to(dtypes[kvdt]) for _ in range(2))
-        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len_arg(torch, kv_len))
         route = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
         before = dict(fa_kernel.route_launches)
         got = fa_ops.flash_attention(q, k, v, **kw)
@@ -462,8 +504,12 @@ def flash_phase(torch, mem_rate, bf16_rate,
         B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = shape[:10]
         q, k, v, kw = inputs[shape]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None if kv_len is None else (
-            torch.arange(Sk, device="cuda") < kv_len)[None, None, None, :]
+        mask = None
+        if isinstance(kv_len, tuple):      # (B, 1, 1, Sk): each row's length
+            mask = (torch.arange(Sk, device="cuda")
+                    < kw["kv_len"][:, None])[:, None, None, :]
+        elif kv_len is not None:
+            mask = (torch.arange(Sk, device="cuda") < kv_len)[None, None, None, :]
 
         def sdpa():
             return F.scaled_dot_product_attention(
@@ -694,15 +740,20 @@ def ssm_err(got, want):
             max(1.0, want.abs().max().item()))
 
 
-def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
-    """Phase 10.  Returns the kernel's entry of the kernels line (all but
-    its launches) and its times at Jamba's prefill and decode shapes."""
+def ssm_phase(torch, mem_rate, f32_rate, exp_rate,
+              title="10. ssm_scan against its plain version on the card",
+              all_shapes=SSM_SHAPES, timed_shapes=SSM_TIMED, seed=13):
+    """Phase 10 (and 31a at the server's shapes): every shape of
+    ``all_shapes`` against the plain version, the decode shape's state
+    updated in place, then the ``timed_shapes`` timed.  Returns the
+    kernel's entry of the kernels line (all but its launches) and its times
+    at the timed shapes, by label."""
     from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
-    print("== 10. ssm_scan against its plain version on the card")
-    gen = torch.Generator(device="cuda").manual_seed(13)
+    print(f"== {title}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     max_err, inputs = 0.0, {}
-    for shape in SSM_SHAPES:
+    for shape in all_shapes:
         for mamba_A in (False, True):
             args = ssm_inputs(torch, shape, gen, mamba_A)
             y, h = ssm_ops.ssm_scan(*args)
@@ -722,19 +773,20 @@ def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
                 inputs[shape] = args
 
     # decode's state update in place: h_out is h0 itself
-    x, dt, A, Bc, Cc, h0 = inputs[JAMBA_DECODE]
+    decode = next(sh for sh in all_shapes if sh[1] == 1 and sh[4])
+    x, dt, A, Bc, Cc, h0 = inputs[decode]
     want_y, want_h = ssm_ref.ssm_scan_ref(x, dt, A, Bc, Cc, h0)
     state = h0.clone()
     y, h = ssm_ops.ssm_scan(x, dt, A, Bc, Cc, state, h_out=state)
     torch.cuda.synchronize()
     (ey, sy), (eh, sh) = ssm_err(y, want_y), ssm_err(state, want_h)
     ok = h is state and ey <= SSM_TOL * sy and eh <= SSM_TOL * sh
-    print(f"  h_out aliased to h0 at {JAMBA_DECODE}: y {ey:.3e}, h {eh:.3e} "
+    print(f"  h_out aliased to h0 at {decode}: y {ey:.3e}, h {eh:.3e} "
           f"{'ok' if ok else 'FAILED'}")
     check(ok, "ssm_scan with h_out aliased to h0 disagrees")
 
     times, shapes = {}, {}
-    for label, shape in (("prefill", JAMBA_PREFILL), ("decode", JAMBA_DECODE)):
+    for label, shape in timed_shapes:
         B, S, D, N, _ = shape
         x, dt, A, Bc, Cc, h0 = inputs[shape]
         out = None if h0 is None else h0.clone()
@@ -753,10 +805,10 @@ def ssm_phase(torch, mem_rate, f32_rate, exp_rate):
         shapes[label] = timed
     del inputs
     torch.cuda.empty_cache()
-    prefill = shapes["prefill"]
+    first = shapes[timed_shapes[0][0]]
     entry = {"max_abs_err": max_err,
-             **{k: prefill[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
              "shapes": shapes}
     return entry, times
 
@@ -1672,15 +1724,7 @@ def slice_phases(torch, counters, mem_rate, bf16_rate, smi, t_start,
             "width and depth", get_arch("llava-next-mistral-7b"),
             7_241_732_096),
         "27": lambda: int8_phase(torch, counters)}
-    out = {}
-    for name, run in phases.items():
-        if only is not None and name not in only:
-            continue
-        t0 = time.perf_counter()
-        out[name] = run()
-        print(f"  phase {name} took {time.perf_counter() - t0:.1f} s; the "
-              f"script so far {time.perf_counter() - t_start:.1f} s ({smi})")
-    return out
+    return run_numbered(phases, smi, t_start, only)
 
 
 def meta_tree_size(cfg, max_seq):
@@ -1870,6 +1914,392 @@ def int8_phase(torch, counters):
     del params, toks, got, want
     torch.cuda.empty_cache()
     return runs
+
+
+# Phases 28-32.  xLSTM-1.3B's tree (ArchConfig.num_params() counts
+# 2,017,984,512: ROADMAP queue 3) and at the train phase's 12 layers; the
+# 8-layer LLaVA-NeXT tree of phase 32.
+XLSTM_TREE, XLSTM12_TREE = 3_527_610_688, 1_036_439_632
+LLAVA8_TREE = 2_007_044_096
+# Phase 28b: decode against the full forward, each step's logits within
+# this share of the step's largest logit (phase 8's bf16 limit), on float32
+# weights: a random-weight bf16 xLSTM is chaotic at depth (48 layers of
+# width 256 on the CPU put a bf16 forward's logits 1.01 of the largest from
+# a float32 forward on the same weights, and decode 0.72 from the full
+# forward; float32 decode 4.8e-4), so the bf16 numbers are printed beside
+# it, not held.
+XLSTM_DECODE_TOL = 2 ** -6
+# Phases 30-31: the continuous-batching server's requests (prompt length,
+# new tokens) in submission order, its slots and cache length.  Phase 30's
+# order makes a slot freed at position 1055 stay empty while others decode,
+# so its position passes max_len - 1 (1158 at the end).  Phase 31's prompts
+# keep the reference's chunk rule for the Mamba prefill, S % min(128, S) ==
+# 0 (src/repro/models/ssm.py:103-104), which prompts of 1000, 129 or 700
+# fail in both packages: below 128 they are ragged against the scan's
+# 32-step tile.
+SERVER_OLMO = (((512, 16), (999, 32), (128, 64), (700, 48), (900, 32),
+                (1000, 24), (1024, 32), (37, 128), (257, 128), (64, 96)),
+               4, 1152)
+SERVER_JAMBA = (((512, 32), (37, 32), (896, 32), (127, 32), (640, 32),
+                 (64, 32)), 3, 1056)
+# a server token against a B = 1 replay on its own tokens: the replay's
+# argmax, or within this share of the replay's largest logit of it (a
+# near-tie, which the batched products' other rounding may flip)
+NEAR_TIE = 2 ** -6
+# Phase 30a / 31a: the kernels at the server's shapes.  B = 1 prefills at
+# ragged lengths (tensor cores), and the batched decode over the 1152- and
+# 1056-position caches with a per-row kv_len (split-K), OLMo-1B's 16 on 16
+# and Jamba's 32 on 8 heads; the scan's B = 1 prefills and its decode at 3
+# slots.  Phase 32a: the backward at LLaVA-NeXT's train shape (2880 image
+# rows + 32 tokens, causal).
+SERVER_DECODE = (4, 1, 1152, 16, 16, 128, False, None, 0,
+                 (1041, 100, 1152, 530), BF16, BF16)
+FA_SERVER_TIMED = (
+    ("server prefill 1000", (1, 1000, 1000, 16, 16, 128, True, None, 0, None,
+                             BF16, BF16)),
+    ("server prefill 37", (1, 37, 37, 16, 16, 128, True, None, 0, None,
+                           BF16, BF16)),
+    ("server decode, per-row kv_len", SERVER_DECODE))
+FA_SERVER_SHAPES = ([shape for _, shape in FA_SERVER_TIMED]
+                    + [(1, 896, 896, 32, 8, 128, True, None, 0, None, BF16, BF16),
+                       (1, 127, 127, 32, 8, 128, True, None, 0, None, BF16, BF16),
+                       (3, 1, 1056, 32, 8, 128, False, None, 0, (513, 38, 928),
+                        BF16, BF16)])
+SSM_SERVER_TIMED = (("server prefill 896", (1, 896, 8192, 16, False)),
+                    ("server prefill 37", (1, 37, 8192, 16, False)),
+                    ("server decode, 3 slots", (3, 1, 8192, 16, True)))
+SSM_SERVER_SHAPES = ([shape for _, shape in SSM_SERVER_TIMED]
+                     + [(1, 127, 8192, 16, False), (1, 64, 8192, 16, False)])
+LLAVA_TRAIN = (4, 2912, 2912, 32, 8, 128, True, None)
+NO_LAUNCHES = {"bwo_evolve": 0, "flash_attention": 0, "ssm_scan": 0,
+               "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
+
+
+def xlstm_serve_phase(torch, counters):
+    """Phase 28: xLSTM-1.3B served at full width and depth (batch 4,
+    prompt 1024, 32 tokens, temperature 1) with every counter set to 0 just
+    before and read just after: no kernel launches, since the reference has
+    no kernel here (the mLSTM and sLSTM run in plain PyTorch).  Then 28b."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    print("== 28. serving xLSTM-1.3B at full width and depth")
+    cfg = get_arch("xlstm-1.3b")
+    n_params = meta_tree_size(cfg, 1056)
+    cache = build_model(cfg).cache_init(4, 1056, device="meta")
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
+    print(f"  parameter tree {n_params:,} (ArchConfig.num_params() "
+          f"{cfg.num_params():,}); the state cache at batch 4 "
+          f"{cache_bytes:,} bytes")
+    check(n_params == XLSTM_TREE, f"the tree holds {n_params} parameters, "
+          f"expected {XLSTM_TREE}")
+    launches, _, numbers = serve_checked(
+        torch, counters, cfg, NO_LAUNCHES,
+        dict.fromkeys(("tensor_core", "split_k", "cuda_core"), 0),
+        "the xLSTM-1.3B serving path")
+    numbers["cache_bytes"] = cache_bytes
+    numbers["layer_prefill_ms"] = xlstm_layer_times(torch, cfg)
+    numbers["decode_vs_forward"] = xlstm_decode_phase(torch, cfg)
+    return launches, numbers
+
+
+def xlstm_layer_times(torch, cfg, B=4, S=1024):
+    """One mLSTM and one sLSTM layer's prefill at the serving shape (host
+    clock ending in a sync: the sLSTM's S steps are launched one by one
+    from the host), in ms."""
+    from repro_torch import random
+    from repro_torch.models import xlstm
+    dev = torch.device("cuda")
+    key = random.PRNGKey(3, dev)
+    x = random.normal(key, (B, S, cfg.d_model)).to(cfg.param_dtype)
+    out = {}
+    for kind in ("mlstm", "slstm"):
+        p = getattr(xlstm, f"{kind}_init")(key, cfg)
+        state = getattr(xlstm, f"{kind}_state_init")(cfg, B, device=dev)
+        apply = getattr(xlstm, f"{kind}_apply")
+        with torch.no_grad():
+            out[kind] = time_ms(torch, lambda: apply(
+                p, x, cfg=cfg, mode="prefill", state=state), reps=3, warmup=1)
+        del p, state
+    print(f"  one layer's prefill ({B} x {S}): mLSTM {out['mlstm']:.3f} ms, "
+          f"sLSTM {out['slstm']:.3f} ms ({out['slstm'] / S * 1e3:.1f} us a "
+          f"step launched from the host)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_decode_phase(torch, cfg):
+    """Phase 28b: prefill 896 tokens, decode 128 more teacher-forced,
+    against one train-mode forward over the 1024, at full width and depth
+    (batch 2): float32 weights held to XLSTM_DECODE_TOL; then the same
+    weights in bf16, printed (see XLSTM_DECODE_TOL)."""
+    from repro_torch import random, tree
+    from repro_torch.models.transformer import build_model
+    P, T, B = 896, 1024, 2
+    dev = torch.device("cuda")
+    print(f"== 28b. xLSTM-1.3B decode against the full forward (prefill {P}, "
+          f"decode to {T}, batch {B})")
+    toks = random.randint(random.PRNGKey(1, dev), (B, T), 0, cfg.vocab_size)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    params = build_model(cfg32, max_seq=T).init(random.PRNGKey(0, dev))
+    out, fulls = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = build_model(dataclasses.replace(cfg, param_dtype=dt), max_seq=T)
+        # the same weights in each leaf's type of a bf16 tree (the gates
+        # and rh stay float32)
+        types = model.init(random.PRNGKey(0, "meta"))
+        p = tree.map(lambda t, like: t.to(like.dtype), params, types)
+        with torch.no_grad():
+            full = model.apply(p, {"tokens": toks}, mode="train")[0]
+            cache = model.cache_init(B, T, device=dev)
+            model.apply(p, {"tokens": toks[:, :P]}, mode="prefill",
+                        cache=cache)
+            worst = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(P, T):
+                logits = model.apply(p, {"tokens": toks[:, t:t + 1]},
+                                     mode="decode", cache=cache,
+                                     cache_pos=t)[0][:, 0]
+                err = ((logits - full[:, t]).abs().amax(-1)
+                       / full[:, t].abs().amax(-1)).max().item()
+                worst = max(worst, err)
+            step_ms = (time.perf_counter() - t0) / (T - P) * 1e3
+        fulls[dt] = full[:, P:].float()
+        name = "float32" if dt == torch.float32 else "bf16"
+        out[name] = {"worst": worst, "decode_ms_per_step": step_ms}
+        print(f"  {name} weights: each step's logits against the full "
+              f"forward's, largest difference over the step's largest logit: "
+              f"worst {worst:.3e} over {T - P} steps"
+              + (f" (tol 2^-6)" if name == "float32" else
+                 " (printed, not held: see XLSTM_DECODE_TOL)")
+              + f"; {step_ms:.2f} ms a step")
+        check(math.isfinite(worst), f"non-finite {name} logits")
+        del p, cache, full
+    chaos = ((fulls[torch.bfloat16] - fulls[torch.float32]).abs().amax(-1)
+             / fulls[torch.float32].abs().amax(-1)).max().item()
+    out["bf16_forward_vs_float32"] = chaos
+    print(f"  the bf16 forward against the float32 one on the same weights: "
+          f"{chaos:.3e} of the largest logit at worst")
+    check(out["float32"]["worst"] <= XLSTM_DECODE_TOL,
+          "xLSTM's decode left the full forward")
+    del params, fulls
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_train_phase(torch, counters):
+    """Phase 29: xLSTM-1.3B trained at full width on 4 x 1024 tokens, cut
+    to 12 layers (2 of its 8 six-layer groups: the full tree's weights,
+    gradients and float32 moments alone are ~42 GB), through
+    ``train_phase`` (no kernel launches; the plain comparison at 256
+    tokens); 29b the reduced step on the card against the CPU route."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b"), num_layers=12)
+    out = train_phase(torch, counters, "29. training xLSTM-1.3B at full "
+                      "width, 12 layers", cfg, XLSTM12_TREE, NO_LAUNCHES, 256)
+    train_card_vs_cpu(torch, ("xlstm-1.3b",), "29b. the reduced xLSTM train "
+                      "step on the card against the CPU route")
+    return out
+
+
+def server_phase(torch, counters, title, cfg, requests, max_batch, max_len):
+    """Phases 30 and 31: ``BatchedServer(build_model(cfg), ...)`` on the
+    card with ``requests`` (prompt length, new tokens; prompts drawn from
+    the seed) submitted in order, stepped to the end with every counter set
+    to 0 just before and read just after: every request completes with its
+    length, one prefill each; flash's calls by route (each prefill's
+    attention layers on the route ``flash_attention.route`` names for a
+    B = 1 prompt, each step's on split-K with a (B,) kv_len, none on the
+    CUDA cores); ``ssm_scan`` one prefill per Mamba layer per request and
+    one decode per Mamba layer per step.  Prints the largest position an
+    empty slot decoded at.  Then each request replayed alone on the card (a
+    B = 1 prefill, int positions), teacher-forced on the server's tokens:
+    each is the replay's argmax, or within NEAR_TIE of its largest logit.
+    Returns the launches, flash's routes and the numbers."""
+    from repro_torch import random
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import BatchedServer, Request
+    print(f"== {title}")
+    dev = torch.device("cuda")
+    n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
+    n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.num_groups
+    model = build_model(cfg, max_seq=max_len)
+    params = model.init(random.PRNGKey(0, dev))
+    longest = max(p for p, _ in requests)
+    toks = random.randint(random.PRNGKey(1, dev), (len(requests), longest), 0,
+                          cfg.vocab_size)
+    reqs = [Request(uid=i, prompt=toks[i, :p], max_new_tokens=n)
+            for i, (p, n) in enumerate(requests)]
+    print(f"  {cfg.num_layers} layers {cfg.block_pattern}, d {cfg.d_model}; "
+          f"{max_batch} slots, max_len {max_len}; requests (prompt, new "
+          f"tokens) {list(requests)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(model, params, max_batch=max_batch,
+                           max_len=max_len, device="cuda")
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    decode_s, past_end = [], 0
+    t0 = time.perf_counter()
+    while server.queue or any(server.slots):
+        idle = ([s for s in range(max_batch) if server.slots[s] is None]
+                if not server.queue else [])
+        before = server._stats["prefills"]
+        s0 = time.perf_counter()
+        server.step()                  # ends in the greedy tokens' host sync
+        dt = time.perf_counter() - s0
+        if server._stats["prefills"] == before:
+            decode_s.append(dt)
+        if idle:
+            pos = server.pos.tolist()  # after the step: the positions + 1
+            past_end = max([past_end] + [pos[s] - 1 for s in idle])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    routes = dict(fa_kernel.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(server._stats)
+    steps = stats["steps"]
+    new_tokens = sum(len(r.output) for r in reqs)
+    numbers = {"steps": steps, "run_s": run_s,
+               "tokens_per_s": new_tokens / run_s,
+               "decode_ms_per_step": statistics.median(decode_s) * 1e3,
+               "empty_slot_max_pos": past_end, "peak_gib": peak / 2**30}
+    print(f"  stats {stats}; {new_tokens} tokens in {run_s:.3f} s "
+          f"({numbers['tokens_per_s']:.1f} tokens/s); decode step (no "
+          f"admission) median {numbers['decode_ms_per_step']:.3f} ms over "
+          f"{len(decode_s)} steps; an empty slot decoded at position "
+          f"{past_end} at most (max_len - 1 = {max_len - 1}); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
+    check(stats == {"steps": steps, "prefills": len(reqs),
+                    "completed": len(reqs)}, f"server stats {stats}")
+    check(all(r.done and len(r.output) == n for r, (_, n) in zip(reqs, requests)),
+          "a request did not complete with its length")
+    want_routes = dict.fromkeys(fa_kernel.ROUTES, 0)
+    for plen, _ in requests:
+        want_routes[fa_kernel.route(cfg.param_dtype, cfg.param_dtype,
+                                    cfg.resolved_head_dim, plen)] += n_attn
+    want_routes["split_k"] += n_attn * steps
+    check_routes(routes, want_routes, f"the {cfg.name} server")
+    check(launches == {**NO_LAUNCHES, "flash_attention": sum(routes.values()),
+                       "ssm_scan": n_mamba * (len(reqs) + steps)},
+          f"launches on the {cfg.name} server: {launches}")
+
+    # each request alone, teacher-forced on the server's tokens
+    exact = near = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for r in reqs:
+            plen = int(r.prompt.shape[0])
+            cache = model.cache_init(1, max_len, device=dev)
+            logits, cache, _ = model.apply(params, {"tokens": r.prompt[None]},
+                                           mode="prefill", cache=cache)
+            rows = [logits[0, -1]]
+            for i, tok in enumerate(r.output[:-1]):
+                logits, cache, _ = model.apply(
+                    params, {"tokens": torch.tensor([[tok]], device=dev)},
+                    mode="decode", cache=cache, cache_pos=plen + i)
+                rows.append(logits[0, 0])
+            L = torch.stack(rows)
+            out = torch.tensor(r.output, device=dev)
+            same = L.argmax(-1) == out
+            gap = ((L.amax(-1) - L.gather(1, out[:, None])[:, 0])
+                   / L.abs().amax(-1))
+            bad = ~same & (gap > NEAR_TIE)
+            check(not bool(bad.any()), f"request {r.uid}: server tokens at "
+                  f"{bad.nonzero()[:, 0].tolist()} are no near-tie of the "
+                  f"replay's (gaps {gap[bad].tolist()})")
+            exact += int(same.sum())
+            near += int((~same).sum())
+            total += len(r.output)
+            worst = max(worst, gap.max().item())
+            del cache
+    print(f"  replayed alone: {exact} of {total} server tokens the replay's "
+          f"argmax, {near} near-ties (largest gap {worst:.3e} of the largest "
+          f"logit, tol 2^-6)")
+    numbers.update(replay_exact=exact, replay_near_ties=near)
+    del params, server
+    torch.cuda.empty_cache()
+    return launches, routes, numbers
+
+
+def llava_train_phase(torch, counters, mem_rate, bf16_rate):
+    """Phase 32a: the flash backward at LLaVA-NeXT's train shape against
+    its plain version, timed beside SDPA's backward; 32: LLaVA-NeXT-
+    Mistral-7B trained at full width, cut to 8 layers, on 4 x (2880 seeded
+    image rows + 32 tokens) through ``train_phase`` (16 flash forwards, the
+    groups' checkpointing running each layer's twice, and 8 backwards a
+    step, all on the tensor cores); the plain comparison on the 32 tokens
+    and 1440 of the image rows."""
+    from repro_torch import random
+    from repro_torch.configs import get_arch
+    bwd = flash_bwd_phase(
+        torch, mem_rate, bf16_rate, "32a. flash_attention backward at "
+        "LLaVA-NeXT's train shape", [LLAVA_TRAIN + (BF16,)],
+        (("llava train", LLAVA_TRAIN),), seed=32)
+    cfg = dataclasses.replace(get_arch("llava-next-mistral-7b"), num_layers=8)
+    key = random.PRNGKey(2, torch.device("cuda"))
+    S = 32
+    launches, numbers = train_phase(
+        torch, counters, "32. training LLaVA-NeXT-Mistral-7B at full width, 8 "
+        "layers", cfg, LLAVA8_TREE,
+        {**NO_LAUNCHES, "flash_attention": 2 * cfg.num_layers,
+         "flash_attention_bwd": cfg.num_layers},
+        {"tokens": S, "labels": S, "image_embeds": 1440}, S=S,
+        extra=lambda B: model_extras(cfg, B, key, "cuda"))
+    return bwd, launches, numbers
+
+
+def new_paths_phases(torch, counters, rates, smi, t_start, only=None):
+    """Phases 28-32 (those named in ``only``, or all), each followed by its
+    seconds, the script's so far and the card's name and power limit
+    (``smi``).  ``rates``: the card's memory, float32, bf16 and exp rates.
+    Returns each phase's result by number."""
+    from repro_torch.configs import get_arch
+    mem_rate, f32_rate, bf16_rate, exp_rate = rates
+    jamba8 = dataclasses.replace(get_arch("jamba-v0.1-52b"), moe=None,
+                                 num_layers=8)
+
+    def server(title, cfg, spec, kernel_check):
+        return kernel_check(), server_phase(torch, counters, title, cfg, *spec)
+
+    phases = {
+        "28": lambda: xlstm_serve_phase(torch, counters),
+        "29": lambda: xlstm_train_phase(torch, counters),
+        "30": lambda: server(
+            "30. the continuous-batching server, OLMo-1B at full width and "
+            "depth", get_arch("olmo-1b"), SERVER_OLMO,
+            lambda: flash_phase(
+                torch, mem_rate, bf16_rate, "30a. flash_attention at the "
+                "server's shapes", FA_SERVER_SHAPES, FA_SERVER_TIMED,
+                seed=30)[0]),
+        "31": lambda: server(
+            "31. the continuous-batching server, Jamba without experts at "
+            "full width, 8 layers", jamba8, SERVER_JAMBA,
+            lambda: ssm_phase(
+                torch, mem_rate, f32_rate, exp_rate, "31a. ssm_scan at the "
+                "server's shapes", SSM_SERVER_SHAPES, SSM_SERVER_TIMED,
+                seed=31)[0]),
+        "32": lambda: llava_train_phase(torch, counters, mem_rate, bf16_rate)}
+    return run_numbered(phases, smi, t_start, only)
+
+
+def run_numbered(phases, smi, t_start, only):
+    """Run ``phases`` (by number) in order, those in ``only`` or all, each
+    followed by its seconds, the script's so far and ``smi``."""
+    out = {}
+    for name, run in phases.items():
+        if only is not None and name not in only:
+            continue
+        t0 = time.perf_counter()
+        out[name] = run()
+        print(f"  phase {name} took {time.perf_counter() - t0:.1f} s; the "
+              f"script so far {time.perf_counter() - t_start:.1f} s ({smi})")
+    return out
 
 
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
@@ -2753,13 +3183,32 @@ def main() -> int:
     llava_launches, llava_routes, llava_serve = new["26"]
     int8 = new["27"]
 
+    # ---- 28.-32. xLSTM, the continuous-batching server, LLaVA training --
+    more = new_paths_phases(torch, counters,
+                            (mem_rate, f32_rate, bf16_rate, exp_rate), smi,
+                            t_start)
+    _, xlstm_serve = more["28"]
+    _, xlstm_step = more["29"]
+    fa_server, (olmo_srv_launches, olmo_srv_routes, olmo_srv) = more["30"]
+    ssm_server, (jamba_srv_launches, jamba_srv_routes, jamba_srv) = more["31"]
+    fa_bwd_llava, llava_train, llava_step = more["32"]
+
     # --------------------------------------------------------- results --
+    def no_routes(numbers):
+        return {k: v for k, v in numbers.items() if "routes" not in k}
+
     print(json.dumps({"paths": {"whisper-medium serve": whisper_serve,
                                 "llava-next-mistral-7b serve": llava_serve,
-                                "whisper-medium train step": {
-                                    k: v for k, v in whisper_step.items()
-                                    if "routes" not in k},
-                                "olmo-1b int8 cache": int8}}))
+                                "whisper-medium train step":
+                                    no_routes(whisper_step),
+                                "olmo-1b int8 cache": int8,
+                                "xlstm-1.3b serve": xlstm_serve,
+                                "xlstm-1.3b train step, 12 layers":
+                                    no_routes(xlstm_step),
+                                "olmo-1b server": olmo_srv,
+                                "jamba server, 8 layers": jamba_srv,
+                                "llava-next train step, 8 layers":
+                                    no_routes(llava_step)}}))
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",
@@ -2777,7 +3226,10 @@ def main() -> int:
                      + whisper_launches["flash_attention"]
                      + whisper_train["flash_attention"]
                      + llava_launches["flash_attention"]
-                     + int8["int8"]["launches"]["flash_attention"]),
+                     + int8["int8"]["launches"]["flash_attention"]
+                     + olmo_srv_launches["flash_attention"]
+                     + jamba_srv_launches["flash_attention"]
+                     + llava_train["flash_attention"]),
         "route_launches": {"olmo-1b": olmo_routes,
                            "jamba without experts": jamba_routes,
                            "jamba with experts": moe_routes,
@@ -2788,14 +3240,22 @@ def main() -> int:
                            "whisper-medium train step":
                                whisper_step["routes"],
                            "llava-next-mistral-7b": llava_routes,
-                           "olmo-1b int8 cache": int8["int8"]["routes"]},
-        **fa, "shapes": {**fa["shapes"], **fa_new["shapes"]},
-        "max_abs_err": max(fa["max_abs_err"], fa_new["max_abs_err"])}, {
+                           "olmo-1b int8 cache": int8["int8"]["routes"],
+                           "olmo-1b server": olmo_srv_routes,
+                           "jamba server": jamba_srv_routes,
+                           "llava-next train step": llava_step["routes"]},
+        **fa, "shapes": {**fa["shapes"], **fa_new["shapes"],
+                         **fa_server["shapes"]},
+        "max_abs_err": max(fa["max_abs_err"], fa_new["max_abs_err"],
+                           fa_server["max_abs_err"])}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
         "launches": (jamba_launches + moe_launches["ssm_scan"]
-                     + jamba_train["ssm_scan"]), **ssm}, {
+                     + jamba_train["ssm_scan"]
+                     + jamba_srv_launches["ssm_scan"]),
+        **ssm, "shapes": {**ssm["shapes"], **ssm_server["shapes"]},
+        "max_abs_err": max(ssm["max_abs_err"], ssm_server["max_abs_err"])}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
         "sources": {
@@ -2806,13 +3266,17 @@ def main() -> int:
                           "step's blockwise_attention, differentiated by XLA)",
         "launches": (olmo_train["flash_attention_bwd"]
                      + jamba_train["flash_attention_bwd"]
-                     + whisper_train["flash_attention_bwd"]),
+                     + whisper_train["flash_attention_bwd"]
+                     + llava_train["flash_attention_bwd"]),
         "route_launches": {
             "olmo-1b train step": fa_bwd["train_step"]["bwd_routes"],
             "jamba train step": ssm_bwd["train_step"]["bwd_routes"],
-            "whisper-medium train step": whisper_step["bwd_routes"]},
-        **fa_bwd, "shapes": {**fa_bwd["shapes"], **fa_bwd_new["shapes"]},
-        "max_abs_err": max(fa_bwd["max_abs_err"], fa_bwd_new["max_abs_err"])},
+            "whisper-medium train step": whisper_step["bwd_routes"],
+            "llava-next train step": llava_step["bwd_routes"]},
+        **fa_bwd, "shapes": {**fa_bwd["shapes"], **fa_bwd_new["shapes"],
+                             **fa_bwd_llava["shapes"]},
+        "max_abs_err": max(fa_bwd["max_abs_err"], fa_bwd_new["max_abs_err"],
+                           fa_bwd_llava["max_abs_err"])},
         {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
@@ -2820,6 +3284,7 @@ def main() -> int:
         "differentiates": "src/repro/models/ssm.py:98 (the train step's "
                           "chunked associative scan, differentiated by XLA)",
         "launches": jamba_train["ssm_scan_bwd"], **ssm_bwd}]
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,7 +29,6 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import modules as nn
 
 NEG_INF = -1e30
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 12)"
 QUANT_MAX = 127.0                 # int8 cache: symmetric, [-127, 127]
 
 Length = Union[None, int, torch.Tensor]
@@ -141,11 +140,17 @@ def _dequantize_kv(q, scale, dtype=torch.bfloat16):
 
 
 def _write_at(buf, val, pos):
-    """Write val (B, 1, ...) into buf (B, S, ...) at seq position ``pos`` —
-    an int, or a (B,) tensor for per-slot positions — in place."""
+    """Write val (B, L, ...) into buf (B, S, ...) at seq position ``pos`` —
+    an int, or a (B,) tensor for per-slot positions — in place.  Each
+    position is clamped into [0, S - L] so the write fits, as
+    ``lax.dynamic_update_slice`` clamps it: a continuous-batching server
+    advances an empty slot's position past the cache, and the reference
+    then writes that row's last position."""
     val = val.to(buf.dtype)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        buf[torch.arange(buf.shape[0], device=buf.device), pos] = val[:, 0]
+        pos = pos.clamp(0, buf.shape[1] - val.shape[1])
+        idx = pos[:, None] + torch.arange(val.shape[1], device=buf.device)
+        buf[torch.arange(buf.shape[0], device=buf.device)[:, None], idx] = val
     else:
         pos = min(max(int(pos), 0), buf.shape[1] - val.shape[1])
         buf[:, pos:pos + val.shape[1]] = val
@@ -316,8 +321,10 @@ def mla_apply(p, x, *, cfg: ArchConfig, mode: str, positions, cache=None,
     if mode == "decode":
         if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
             raise NotImplementedError(
-                f"per-slot decode positions for MLA {_NOT_PORTED}: "
-                f"serving/scheduler.py")
+                "MLA takes one decode position for every row, as the "
+                "reference's mla_apply (src/repro/models/attention.py:311-314)"
+                "; per-slot positions (serving/scheduler.py) are not "
+                "supported in either package")
         pos = int(cache_pos)
         c_cache = _write_at(cache["c_kv"], c_kv, pos)
         r_cache = _write_at(cache["k_rope"], k_rope, pos)

@@ -1,16 +1,15 @@
 """The decoder and encoder-decoder stack: the port of
-``repro/models/transformer.py`` for block patterns of attention (GQA, or
-MLA where the arch sets it) and Mamba layers, each with a dense FFN or a
-mixture of experts (OLMo, Granite, Qwen1.5, Jamba, DeepSeek-V2, Arctic),
-Whisper's encoder, cross-attention and learned positions, and LLaVA's
-vision prefix.
+``repro/models/transformer.py`` for every block pattern of the reference:
+attention (GQA, or MLA where the arch sets it) and Mamba layers, each with
+a dense FFN or a mixture of experts (OLMo, Granite, Qwen1.5, Jamba,
+DeepSeek-V2, Arctic), xLSTM's mLSTM and sLSTM blocks, Whisper's encoder,
+cross-attention and learned positions, and LLaVA's vision prefix.
 
 Layers are grouped by the arch's repeating ``block_pattern`` and the
 group params are *stacked* along a leading axis (``num_groups``; the
 encoder's layers along ``encoder_layers``), as in the reference, so a
 parameter tree carries across as a copy; the reference's ``lax.scan`` over
-that axis is a loop here.  xLSTM blocks are not ported yet and raise in
-``build_model`` (ROADMAP queue 1, item 12).
+that axis is a loop here.
 """
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 
 class _Mixer(NamedTuple):
@@ -37,31 +37,40 @@ class _Mixer(NamedTuple):
     apply: Callable
 
 
-def _mamba_state_init(cfg, batch, max_len, *, quantized, device):
-    # a fixed-size state: no length, and nothing to quantize
-    return ssm_lib.mamba_state_init(cfg, batch, device=device)
-
-
-def _mamba_apply(p, h, *, cfg, mode, positions, cache, cache_pos, window):
-    # the recurrence and the conv window carry the order: no positions
-    return ssm_lib.mamba_apply(p, h, cfg=cfg, mode=mode, state=cache)
-
-
 def _mla_cache_init(cfg, batch, max_len, *, quantized, device):
     # the latent cache is already small: int8 applies to GQA caches only
     return attn.mla_cache_init(cfg, batch, max_len, device=device)
 
 
-# every ported mixer kind; any other raises in build_model
+def _recurrent(init, state_init, apply) -> _Mixer:
+    """A mixer whose cache is a fixed-size state (Mamba's, xLSTM's): no
+    length, nothing to quantize; the recurrence carries the order, so no
+    positions."""
+    def cache_init(cfg, batch, max_len, *, quantized, device):
+        return state_init(cfg, batch, device=device)
+
+    def apply_(p, h, *, cfg, mode, positions, cache, cache_pos, window):
+        return apply(p, h, cfg=cfg, mode=mode, state=cache)
+
+    return _Mixer(init, cache_init, apply_)
+
+
 _MIXERS = {
     "attn": _Mixer(attn.gqa_init, attn.gqa_cache_init, attn.gqa_apply),
-    "mamba": _Mixer(ssm_lib.mamba_init, _mamba_state_init, _mamba_apply),
+    "mamba": _recurrent(ssm_lib.mamba_init, ssm_lib.mamba_state_init,
+                        ssm_lib.mamba_apply),
+    "mlstm": _recurrent(xlstm_lib.mlstm_init, xlstm_lib.mlstm_state_init,
+                        xlstm_lib.mlstm_apply),
+    "slstm": _recurrent(xlstm_lib.slstm_init, xlstm_lib.slstm_state_init,
+                        xlstm_lib.slstm_apply),
 }
 _MLA = _Mixer(attn.mla_init, _mla_cache_init, attn.mla_apply)
 
 
 def _mixer(cfg: ArchConfig, sub_idx: int) -> _Mixer:
     kind = cfg.block_pattern[sub_idx]
+    if kind not in _MIXERS:
+        raise ValueError(kind)
     return _MLA if kind == "attn" and cfg.mla is not None else _MIXERS[kind]
 
 
@@ -84,12 +93,6 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
     reference's."""
     return dataclasses.replace(cfg, block_pattern=("attn",),
                                cross_attention=False, moe=None, mla=None)
-
-
-def _unsupported(cfg: ArchConfig) -> Optional[str]:
-    """What of ``cfg`` the port lacks, or None."""
-    kinds = sorted(set(cfg.block_pattern) - set(_MIXERS))
-    return f"{'/'.join(kinds)} blocks" if kinds else None
 
 
 def _stacked(init_fn, keys) -> Dict[str, Any]:
@@ -120,6 +123,8 @@ def _init_sublayer(key, cfg: ArchConfig, sub_idx: int) -> Dict[str, Any]:
         p["norm_x"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                    device=dev)
         p["cross"] = attn.gqa_init(r[1], cfg, cross=True)
+    if cfg.block_pattern[sub_idx] not in ("attn", "mamba"):
+        return p                # an xLSTM block carries its own projections
     if _has_moe(cfg, sub_idx) or cfg.ffn != "none":
         p["norm2"] = nn.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype,
                                   device=dev)
@@ -336,11 +341,4 @@ class Model:
 
 
 def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:
-    missing = _unsupported(cfg)
-    if missing is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {missing} not ported yet (ROADMAP queue 1, "
-            f"item 12); the port builds attention (GQA or MLA, with "
-            f"cross-attention and an encoder) and mamba layers with a dense "
-            f"FFN or experts")
     return Model(cfg=cfg, max_seq=max_seq)

@@ -900,3 +900,83 @@ def test_ssm_scan_backward_kernel_is_deterministic(B, S, D, N, with_h0):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+# ------------------------------------------------ continuous batching --
+# the reduced archs the server takes (float32: the CUDA-core and scan
+# kernels), with prompts of whole reduced chunks where a recurrence needs
+# them (Jamba's Mamba takes S % min(32, S) == 0, xLSTM's too)
+SERVER_CASES = [("granite-8b", {}, [5, 9, 7, 12]), ("olmo-1b", {}, [4, 5, 6]),
+                ("jamba-v0.1-52b", {"moe": None}, [5, 32, 9, 12]),
+                ("xlstm-1.3b", {}, [32, 64, 32])]
+
+
+def _serve(name, changes, plens, n_new, device, max_len=80, dtype=None):
+    """A reduced ``BatchedServer`` with 2 slots on ``device``, its weights
+    drawn on the CPU from seed 0, prompts from seed 1.  Returns the
+    requests (run to the end), the stats and the server."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import BatchedServer, Request
+    cfg = dataclasses.replace(get_arch(name), **changes).reduced()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    model = build_model(cfg, max_seq=max_len)
+    params = tree.map(lambda t: t.to(device), model.init(R.PRNGKey(0, "cpu")))
+    toks = R.randint(R.PRNGKey(1, "cpu"), (len(plens), max(plens)), 0,
+                     cfg.vocab_size)
+    news = n_new if isinstance(n_new, list) else [n_new] * len(plens)
+    server = BatchedServer(model, params, max_batch=2, max_len=max_len,
+                           device=device)
+    reqs = [Request(uid=i, prompt=toks[i, :p], max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(plens, news))]
+    for r in reqs:
+        server.submit(r)
+    return reqs, server.run(), server
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,changes,plens", SERVER_CASES,
+                         ids=[c[0] + ("-no-experts" if c[1] else "")
+                              for c in SERVER_CASES])
+def test_server_on_the_card_gives_the_cpu_route_tokens(name, changes, plens):
+    """The reduced server (float32) on the card and on the port's CPU route
+    (which tests/test_torch_scheduler.py holds to the reference's server):
+    the same tokens and stats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    card, card_stats, _ = _serve(name, changes, plens, 6, "cuda")
+    cpu, cpu_stats, _ = _serve(name, changes, plens, 6, "cpu")
+    assert card_stats == cpu_stats
+    assert [r.output for r in card] == [r.output for r in cpu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_server_slot_past_the_cache_end_on_the_card(dtype):
+    """A slot freed at position 23 of a 24-position cache advances to 33
+    while the other decodes: its writes land on the cache's last position
+    (no device-side assert), every request completes, and with bf16 the
+    batched steps run split-K with a (B,) kv_len past the cache, the
+    prefills on the tensor cores.  float32: the CPU route's tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tdt = getattr(torch, dtype)
+    fa_kernel.route_launches.update(dict.fromkeys(fa_kernel.route_launches, 0))
+    card, stats, server = _serve("olmo-1b", {}, [20, 3], [4, 14], "cuda",
+                                 max_len=24, dtype=tdt)
+    torch.cuda.synchronize()
+    assert stats == {"steps": 13, "prefills": 2, "completed": 2}
+    assert int(server.pos[0]) == 33 and [len(r.output) for r in card] == [4, 14]
+    if dtype == "bfloat16":
+        # 2 layers: 2 prefills (20 tokens on the tensor cores, 3 split-K)
+        # and 13 decode steps
+        assert fa_kernel.route_launches == {"tensor_core": 2,
+                                            "split_k": 2 + 2 * 13,
+                                            "cuda_core": 0}
+    else:
+        cpu, cpu_stats, _ = _serve("olmo-1b", {}, [20, 3], [4, 14], "cpu",
+                                   max_len=24, dtype=tdt)
+        assert cpu_stats == stats
+        assert [r.output for r in card] == [r.output for r in cpu]

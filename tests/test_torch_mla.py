@@ -143,7 +143,8 @@ def test_mla_per_slot_decode_positions_raise():
     cfg, _, _, tp, x = _setup()
     cache = attention.mla_cache_init(cfg, B, T, device="cpu")
     pos = torch.tensor([T0, T0 + 1])
-    with pytest.raises(NotImplementedError, match="scheduler"):
+    with pytest.raises(NotImplementedError,
+                       match="src/repro/models/attention.py:311-314"):
         attention.mla_apply(tp, torch.as_tensor(x[:, :1]), cfg=cfg,
                             mode="decode", positions=pos[:, None],
                             cache=cache, cache_pos=pos)

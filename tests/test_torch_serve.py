@@ -121,7 +121,3 @@ def test_serve_moe_archs_give_the_reference_tokens(name, temperature):
     np.testing.assert_allclose(res.logits.numpy(), want_logits, rtol=0,
                                atol=1e-2)
 
-
-def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve(get_arch("xlstm-1.3b").reduced(), device="cpu")

@@ -8,7 +8,7 @@ the ``launch/train.py`` CLI.
 Tolerances: gradients leaf by leaf within 1e-4 of each leaf's largest
 entry (float32 stacks of 2 to 16 layers, sums in other orders: the
 reference's prefill-logit tolerance); loss, aux and grad_norm within 1e-5
-relative over three steps; token streams exactly (the same threefry draws);
+relative over three steps (xLSTM's 1e-3: ``METRIC_RTOL``); token streams exactly (the same threefry draws);
 checkpoints bit for bit."""
 import os
 import subprocess
@@ -43,8 +43,14 @@ B, S = 2, 32
 # every arch the port builds, reduced; Jamba with and without its experts
 TRAINED = [("olmo-1b", {}), ("qwen1.5-4b", {}), ("granite-8b", {}),
            ("jamba-v0.1-52b", {"moe": None}), ("jamba-v0.1-52b", {}),
-           ("deepseek-v2-236b", {}), ("arctic-480b", {})]
-UNPORTED = ["xlstm-1.3b"]
+           ("deepseek-v2-236b", {}), ("arctic-480b", {}), ("xlstm-1.3b", {})]
+# xLSTM's three-step metrics: its float32 forward sits ~5e-5 of the
+# largest logit from the reference's after 12 layers (each layer's
+# gradients within ~1e-6 of a float64 port in both packages,
+# tests/test_torch_xlstm.py), and AdamW's normalised first steps turn that
+# elementwise noise into updates of full size: grad_norm read 3.3e-5,
+# 9.8e-5 and 3.1e-4 apart over the three steps
+METRIC_RTOL = {"xlstm-1.3b": 1e-3}
 
 
 def _err(got, want):
@@ -126,7 +132,8 @@ def test_train_step_matches_the_reference(name, changes):
             if k == "aux" and float(jmet[k]) == 0:
                 assert float(tmet[k]) == 0
             else:
-                assert _err(tmet[k], jmet[k]) < 1e-5, (i, k)
+                assert _err(tmet[k], jmet[k]) < METRIC_RTOL.get(name, 1e-5), \
+                    (i, k)
     assert int(tstate["step"]) == int(jstate["step"]) == 3
     assert all(a is b for a, b in zip(tree.leaves(tstate["params"]), params))
 
@@ -178,12 +185,6 @@ def test_gradient_accumulation_matches_full_batch():
     _, jm2 = jax.jit(jstep2)(jstate, jb)
     for k in ("loss", "grad_norm"):
         assert _err(m2[k], jm2[k]) < 1e-5
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_archs_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(build_model(configs.get_arch(name).reduced()))
 
 
 # -------------------------------------------------------- checkpoints --

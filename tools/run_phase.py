@@ -13,6 +13,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 18 [TREE]      # ssm_scan's backward
     python3 tools/run_phase.py 22 [TREE]      # a phase of 22-27 (or several:
                                               # 24,25)
+    python3 tools/run_phase.py 28 [TREE]      # a phase of 28-32 (or several)
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -43,6 +44,10 @@ tree's ``chip_smoke.py`` (trees from the one that added them on):
 flash's forward at Whisper-medium's and LLaVA-NeXT's shapes, its backward
 where queries and keys differ in number, serving and training
 Whisper-medium, serving LLaVA-NeXT, and the int8 KV cache at OLMo-1B.
+``28`` to ``32`` likewise: serving xLSTM-1.3B (and its decode against the
+full forward), training it at 12 layers, the continuous-batching server
+at OLMo-1B and at 8-layer Jamba without experts (each with the kernels at
+its shapes), and training LLaVA-NeXT at 8 layers.
 """
 from __future__ import annotations
 
@@ -55,8 +60,9 @@ def main() -> int:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
     slice_phases = set(phase.split(",")) <= {"22", "23", "24", "25", "26",
                                              "27"}
+    new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
     if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
-                     "20") and not slice_phases:
+                     "20") and not slice_phases and not new_paths:
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -88,7 +94,7 @@ def main() -> int:
             torch, (bwo_evolve, flash_attention, ssm_scan,
                     flash_attention_bwd, ssm_scan_bwd),
             *cs.train_cells()[phase])
-    elif slice_phases:
+    elif slice_phases or new_paths:
         import subprocess
         import time
         from repro_torch.kernels.bwo_evolve import bwo_evolve
@@ -100,10 +106,16 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip()
         print(smi)
-        out = cs.slice_phases(
-            torch, (bwo_evolve, flash_attention, ssm_scan,
-                    flash_attention_bwd, ssm_scan_bwd), mem, bf16, smi,
-            time.perf_counter(), only=set(phase.split(",")))
+        counters = (bwo_evolve, flash_attention, ssm_scan,
+                    flash_attention_bwd, ssm_scan_bwd)
+        if slice_phases:
+            out = cs.slice_phases(torch, counters, mem, bf16, smi,
+                                  time.perf_counter(),
+                                  only=set(phase.split(",")))
+        else:
+            out = cs.new_paths_phases(torch, counters, (mem, f32, bf16, exp),
+                                      smi, time.perf_counter(),
+                                      only=set(phase.split(",")))
         times = {k: v.get("shapes", v) if isinstance(v, dict) else v[-1]
                  for k, v in out.items()}
     elif phase == "4c":
