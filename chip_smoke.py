@@ -191,8 +191,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 32. training LLaVA-NeXT at full width cut to 8 layers (4 x (2880 seeded
     image rows + 32 tokens): 16 flash forwards and 8 backwards a step on
     the tensor cores); 32a. the backward at that shape beside SDPA's.
-Phases 22-32 each print their seconds and the card's name and power limit
-(``python3 tools/run_phase.py 22,...,27`` or ``28,...,32`` runs any of
+33. the mesh schedules (``repro_torch.core.distributed``): FedBWO on the
+    paper CNN at ``FLConfig()``'s defaults, one gloo rank per client (10
+    processes by ``launch.mesh.run_ranks``, all on the one card), 3
+    rounds of ``make_fedx_round`` with ``bwo(use_kernel=True)`` and the
+    server's keys, each round against the sequential engine from the same
+    start under ``cudnn.deterministic`` (the same winner, scores within
+    1e-5, the model the sequential winner's) and the batched engine (the
+    same winner, scores within 1e-2); 90 ``bwo_evolve`` launches across
+    the ranks; the collectives' bytes (all-gather 40 + broadcast
+    9,861,288 = CommMeter's uplink); one FedAvg round (all-reduce 10 x
+    9,861,288) against the sequential and the batched FedAvg (rtol 1e-4,
+    atol 1e-5); the round time (the slowest rank), the collectives'
+    times, the start-up and each rank's peak memory.
+Phases 22-33 each print their seconds and the card's name and power limit
+(``python3 tools/run_phase.py 22,...,27``, ``28,...,32`` or ``33`` runs
 them alone); the script prints its total before the kernels line.
 
 It then prints a JSON line of the new paths' numbers, one JSON line
@@ -2302,6 +2315,244 @@ def run_numbered(phases, smi, t_start, only):
     return out
 
 
+# Phase 33: the mesh schedules.  FedBWO on the paper CNN at FLConfig()'s
+# defaults, one gloo rank per client on the one card, against the
+# sequential engine (the same client update in one process, the same keys)
+# under cudnn.deterministic, and against the batched engine (phase 4b's
+# limit); one FedAvg round against the sequential and the batched FedAvg
+# (the reference's FedAvg tolerance: a mean of ten clients' models).
+MESH_ROUNDS = 3
+MESH_RTOL = 1e-5             # scores and winner params against sequential
+MESH_AVG_TOL = dict(rtol=1e-4, atol=1e-5)
+MESH_TIMEOUT = 600           # seconds: the ranks' collectives and the run
+
+
+def mesh_rank(rank, start, shards, keys, n):
+    """One rank of phase 33 (``run_ranks``): this client's shard and keys
+    (CPU tensors; ``keys`` is (clients, rounds, 2)) moved to cuda:0, ``MESH_ROUNDS`` FedBWO rounds through
+    ``make_fedx_round`` with the kernel, then one FedAvg round from
+    ``start``.  Returns per round the time, the collectives' seconds and
+    bytes, the scores and a digest of the new model (the whole model on
+    rank 0); the launches, the peak memory and the start-up's end."""
+    import hashlib
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import FLConfig
+    from repro_torch.core.distributed import (make_fedavg_round,
+                                              make_fedx_round)
+    from repro_torch.data.synthetic import cnn_task
+    from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.metaheuristics import bwo
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(n, device_type="cuda")
+    task, hp = cnn_task(), FLConfig().client_hp()
+    params = tree.map(lambda a: a.to(dev), start)
+    shard = tree.map(lambda a: a.to(dev), shards[rank])
+    keys = keys[rank].to(dev)
+    fedx = make_fedx_round(task, hp, bwo(use_kernel=True), mesh)
+    torch.distributed.barrier()
+    ready = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    bwo_kernel.launches = 0
+    rounds = []
+    for r in range(MESH_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, scores = fedx(params, shard, keys[r:r + 1])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        flat = torch.cat([l.reshape(-1) for l in tree.leaves(params)]).cpu()
+        rounds.append({
+            "s": secs, "seconds": dict(fedx.seconds),
+            "traffic": dict(fedx.traffic), "scores": scores.cpu(),
+            "digest": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+            "params": tree.map(lambda a: a.cpu(), params) if rank == 0
+            else None})
+    launches = bwo_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    avg = make_fedavg_round(task, hp, mesh)
+    new, scores = avg(tree.map(lambda a: a.to(dev), start), shard,
+                      keys[0:1])
+    fedavg = {"traffic": dict(avg.traffic), "seconds": dict(avg.seconds),
+              "scores": scores.cpu(),
+              "params": tree.map(lambda a: a.cpu(), new) if rank == 0
+              else None}
+    return {"ready": ready, "rounds": rounds, "launches": launches,
+            "peak": peak, "fedavg": fedavg}
+
+
+def _rel_tree(got, want):
+    """The largest difference of two trees over the largest entry of
+    ``want``, and whether they are equal bit for bit."""
+    import torch
+    from repro_torch import tree
+    diff = max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(tree.leaves(got), tree.leaves(want)))
+    top = max(float(w.float().abs().max()) for w in tree.leaves(want))
+    same = all(torch.equal(g, w) for g, w in zip(tree.leaves(got),
+                                                  tree.leaves(want)))
+    return diff / top, same
+
+
+def mesh_phase(torch):
+    """Phase 33: ``make_fedx_round`` on ``make_host_mesh(10)``, one gloo
+    rank per client on cuda:0 (``run_ranks``), 3 FedBWO rounds of the
+    paper CNN at FLConfig()'s defaults with ``bwo(use_kernel=True)``, the
+    keys of the server's schedule; round by round against the sequential
+    engine from the same start under cudnn.deterministic (the same winner,
+    scores within MESH_RTOL, the new model the sequential winner's) and the
+    batched engine (the same winner, scores within ENGINE_RTOL); 90
+    bwo_evolve launches across the ranks; the collectives' bytes (a
+    round's all-gather and broadcast equal CommMeter's uplink); one FedAvg
+    round against the sequential and the batched FedAvg (MESH_AVG_TOL; its
+    scores within ENGINE_RTOL of the batched engine's).
+    Prints the round time (the slowest rank), the collectives' times, the
+    start-up and each rank's peak memory.  Returns the numbers."""
+    from repro_torch import random, tree
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.core.comm import fedavg_round_bytes
+    from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
+    from repro_torch.launch.mesh import run_ranks
+    print("== 33. the mesh schedules: FedBWO on the paper CNN at full width, "
+          "one gloo rank per client on one card, bwo_evolve in every rank")
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", max_rounds=MESH_ROUNDS, tau=1.01)
+    n = cfg.n_clients
+    seq = build_experiment(dataclasses.replace(cfg, engine="sequential"))
+    bat = build_experiment(dataclasses.replace(cfg, engine="batched"))
+    start = seq.server.global_params
+    rng, keys = seq.server.rng, []
+    for _ in range(MESH_ROUNDS):              # Server.run_round's schedule
+        split = random.split(rng, n + 2)
+        rng = split[0]
+        keys.append(split[2:])
+    keys = torch.stack(keys, 1)               # (clients, rounds, 2)
+    cpu = tree.map(lambda a: a.cpu(), start)
+    shards = [tree.map(lambda a: a[None].cpu(), d)
+              for d in seq.server.client_data]
+    bwo_kernel.build()                        # once, before the ranks
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = run_ranks(n, mesh_rank, cpu, shards, keys.cpu(), n,
+                     timeout=MESH_TIMEOUT)
+    wall = time.time() - t0
+    startup = max(o["ready"] for o in outs) - t0
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    m_bytes = seq.server.meter.model_bytes
+    try:
+        params = start
+        for r in range(MESH_ROUNDS):
+            got = [o["rounds"][r] for o in outs]
+            scores = got[0]["scores"]
+            winner = int(torch.argmin(scores))
+            check(all(torch.equal(g["scores"], scores) for g in got)
+                  and len({g["digest"] for g in got}) == 1,
+                  f"round {r}: the ranks ended with other scores or models")
+            infos = {}
+            for name, exp in (("sequential", seq), ("batched", bat)):
+                exp.server.global_params = params
+                infos[name] = exp.server.run_round()
+            si, bi = infos["sequential"], infos["batched"]
+            s_diff = max(abs(a - b) / abs(b) for a, b in
+                         zip(scores.tolist(), si["scores"]))
+            b_diff = max(abs(a - b) / abs(b) for a, b in
+                         zip(scores.tolist(), bi["scores"]))
+            mesh_params = tree.map(lambda a: a.cuda(), got[0]["params"])
+            p_diff, same = _rel_tree(mesh_params, seq.server.global_params)
+            traffic = got[0]["traffic"]
+            uplink = seq.server.meter.uplink[-1]
+            times = [g["s"] for g in got]
+            ag = [g["seconds"]["all_gather"] for g in got]
+            bc = [g["seconds"]["broadcast"] for g in got]
+            print(f"  round {r}: round_time_s (slowest rank) {max(times):.3f} "
+                  f"(fastest {min(times):.3f}); all_gather s "
+                  f"{min(ag):.6f}-{max(ag):.6f}, broadcast s "
+                  f"{min(bc):.6f}-{max(bc):.6f}; winner {winner} vs "
+                  f"sequential {si['best_client']}, batched "
+                  f"{bi['best_client']}; max relative score diff "
+                  f"{s_diff:.3e} (tol {MESH_RTOL}) / {b_diff:.3e} (tol "
+                  f"{ENGINE_RTOL}); model against the sequential winner's "
+                  f"{p_diff:.3e} of its largest entry, bit for bit {same}; "
+                  f"bytes {traffic} = {sum(traffic.values()):,} (CommMeter "
+                  f"{uplink:,})")
+            check(winner == si["best_client"] == bi["best_client"],
+                  f"round {r}: winners differ")
+            check(s_diff <= MESH_RTOL and p_diff <= MESH_RTOL,
+                  f"round {r}: the mesh's scores or model differ from the "
+                  f"sequential engine's beyond {MESH_RTOL}")
+            check(b_diff <= ENGINE_RTOL, f"round {r}: the mesh's scores "
+                  f"differ from the batched engine's beyond {ENGINE_RTOL}")
+            check(traffic == {"all_gather": 4 * n, "broadcast": m_bytes}
+                  and sum(traffic.values()) == uplink,
+                  f"round {r}: the collectives moved {traffic}, the "
+                  f"meter counts {uplink}")
+            params = mesh_params
+        launches = sum(o["launches"] for o in outs)
+        check(launches == n * MESH_ROUNDS * cfg.mh_generations,
+              f"bwo_evolve launched {launches} times across the ranks, "
+              f"expected {n * MESH_ROUNDS * cfg.mh_generations}")
+
+        # FedAvg, one round from the common start
+        avg = [o["fedavg"] for o in outs]
+        fa_traffic = avg[0]["traffic"]
+        check(fa_traffic["all_reduce"] == fedavg_round_bytes(1.0, n, m_bytes)
+              and fa_traffic["all_gather"] == 4 * n,
+              f"FedAvg's collectives moved {fa_traffic}")
+        mesh_avg = tree.map(lambda a: a.cuda(), avg[0]["params"])
+        diffs = {}
+        for engine in ("sequential", "batched"):
+            exp = build_experiment(dataclasses.replace(
+                cfg, strategy="fedavg", engine=engine))
+            exp.server.global_params = start
+            info = exp.server.run_round()
+            want = exp.server.global_params
+            close = all(torch.allclose(g, w, **MESH_AVG_TOL) for g, w in
+                        zip(tree.leaves(mesh_avg), tree.leaves(want)))
+            order = sorted(range(n), key=info["participants"].__getitem__)
+            sc = [info["scores"][i] for i in order]
+            diffs[engine] = (_rel_tree(mesh_avg, want)[0], close, max(
+                abs(a - b) / abs(b) for a, b in
+                zip(avg[0]["scores"].tolist(), sc)))
+        print(f"  FedAvg: bytes {fa_traffic}, all_reduce s "
+              f"{min(a['seconds']['all_reduce'] for a in avg):.6f}-"
+              f"{max(a['seconds']['all_reduce'] for a in avg):.6f}; model "
+              f"against the sequential FedAvg {diffs['sequential'][0]:.3e} "
+              f"of its largest entry (within {MESH_AVG_TOL}: "
+              f"{diffs['sequential'][1]}), against the batched "
+              f"{diffs['batched'][0]:.3e} (within {MESH_AVG_TOL}: "
+              f"{diffs['batched'][1]}); scores {diffs['sequential'][2]:.3e}"
+              f" / {diffs['batched'][2]:.3e}")
+        check(diffs["sequential"][1] and diffs["batched"][1],
+              f"the mesh's FedAvg differs from the sequential or the "
+              f"batched engine's beyond {MESH_AVG_TOL}")
+        check(diffs["batched"][2] <= ENGINE_RTOL, f"the mesh's FedAvg "
+              f"scores differ from the batched engine's beyond {ENGINE_RTOL}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    peaks = [o["peak"] / 2**30 for o in outs]
+    round_s = [max(o["rounds"][r]["s"] for o in outs)
+               for r in range(MESH_ROUNDS)]
+    print(f"  {n} ranks: start-up {startup:.2f} s (spawn to every rank's "
+          f"mesh and data on the card), the run {wall:.2f} s; bwo_evolve "
+          f"{launches} launches across the ranks; peak memory by rank "
+          f"{[round(p, 3) for p in peaks]} GiB")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "round_time_s": round_s,
+            "startup_s": startup,
+            "all_gather_s": [min(o["rounds"][r]["seconds"]["all_gather"]
+                                 for o in outs) for r in range(MESH_ROUNDS)],
+            "broadcast_s": [max(o["rounds"][r]["seconds"]["broadcast"]
+                                for o in outs) for r in range(MESH_ROUNDS)],
+            "peak_gib": peaks}
+
+
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
     """bwo_evolve's least time on this card for one launch over P child
     rows: the distinct parent rows this draw reads, both bit planes and
@@ -3193,6 +3444,10 @@ def main() -> int:
     ssm_server, (jamba_srv_launches, jamba_srv_routes, jamba_srv) = more["31"]
     fa_bwd_llava, llava_train, llava_step = more["32"]
 
+    # ------------------------------------------ 33. the mesh schedules --
+    mesh = run_numbered({"33": lambda: mesh_phase(torch)}, smi,
+                        t_start, None)["33"]
+
     # --------------------------------------------------------- results --
     def no_routes(numbers):
         return {k: v for k, v in numbers.items() if "routes" not in k}
@@ -3208,11 +3463,16 @@ def main() -> int:
                                 "olmo-1b server": olmo_srv,
                                 "jamba server, 8 layers": jamba_srv,
                                 "llava-next train step, 8 layers":
-                                    no_routes(llava_step)}}))
+                                    no_routes(llava_step),
+                                "fedbwo mesh, 10 ranks": mesh}}))
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",
-        "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43", **bwo}, {
+        "replaces": "src/repro/kernels/bwo_evolve/bwo_evolve.py:43", **bwo,
+        "launches": bwo["launches"] + mesh["launches"],
+        "launches_by_path": {"main path (phase 4)": bwo["launches"],
+                             "mesh, 10 ranks (phase 33)":
+                                 mesh["launches"]}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_hopper.cu",
         "sources": {"tensor_core": "src/repro_torch/csrc/flash_attention_hopper.cu",

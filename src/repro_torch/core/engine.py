@@ -30,8 +30,10 @@ server aggregation — as one program over a leading client axis:
 * ``pipeline_blocks`` keeps up to ``depth`` blocks in flight, so the host
   finishes block k while the card runs block k+1.
 
-Not here yet: the mesh schedules (``make_sharded_*``; ROADMAP.md, queue
-1, item 10).
+The mesh schedules are here too: :func:`make_sharded_fedx_round` and
+:func:`make_sharded_fedavg_round` run one client per rank of a
+``DeviceMesh`` axis, with real collectives between processes
+(:class:`MeshRound`; wrapped by ``repro_torch.core.distributed``).
 """
 from __future__ import annotations
 
@@ -40,10 +42,13 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import random, tree
-from repro_torch.core.client import ClientHP, Task, make_update
+from repro_torch.convert import ravel_params
+from repro_torch.core.client import (ClientHP, Task, make_client_update,
+                                     make_update)
 from repro_torch.core.knobs import parse_vectorize
 from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
 from repro_torch.metaheuristics import Metaheuristic
@@ -571,3 +576,110 @@ def pipeline_blocks(dispatch: Callable[[Any], Any],
         if not stopped and should_stop is not None and should_stop(res):
             stopped, kept = True, len(results)
     return results, len(results) if kept is None else kept, stopped
+
+
+# ------------------------------------------------------------ sharded --
+def _squeeze0(tree_, what: str):
+    """A rank's shard without its leading dim of 1.  The reference's
+    ``_squeeze0`` keeps element 0 of a longer shard and drops the rest;
+    here a shard of more than one client raises."""
+    def one(a):
+        if a.dim() == 0 or a.shape[0] != 1:
+            raise ValueError(
+                f"each rank holds one client: {what} has shape "
+                f"{tuple(a.shape)}, expected a leading dim of 1")
+        return a[0]
+    return tree.map(one, tree_)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class MeshRound:
+    """One FL round over the ranks of a mesh axis: every rank of the axis's
+    group calls ``round_fn(global_params, client_data, keys)`` with its own
+    shard (leaves with a leading dim of 1, keys of shape (1, 2)), as each
+    shard of the reference's ``shard_map`` runs the round body.  Local
+    training runs with no collective; the round's traffic is FedX's score
+    all-gather and winner broadcast, or FedAvg's all-reduce.  Returns
+    ``(new_global_params, scores)``, the same on every rank.
+
+    The device is synchronised around each collective (the round reads the
+    winner on the host anyway), so ``seconds`` holds each collective's own
+    host time in the last call (the all-gather's includes waiting for the
+    last rank to finish its update).  ``traffic`` holds the bytes each
+    carried from the clients, read from the tensors passed: the all-gather
+    n x 4, the broadcast the winner's M, the all-reduce every rank's M."""
+
+    def __init__(self, update, group, fedx: bool):
+        self.update = update
+        self.group = group
+        self.fedx = fedx
+        self.n = dist.get_world_size(group)
+        self.traffic: Dict[str, int] = {}
+        self.seconds: Dict[str, float] = {}
+
+    def _collective(self, name: str, nbytes: int, device, call) -> None:
+        _sync(device)
+        t0 = time.perf_counter()
+        call()
+        _sync(device)
+        self.seconds[name] = time.perf_counter() - t0
+        self.traffic[name] = nbytes
+
+    def __call__(self, global_params, client_data, keys):
+        score, new_params = self.update(global_params,
+                                        _squeeze0(client_data, "client data"),
+                                        _squeeze0(keys, "keys"))
+        dev = score.device
+        score = score.reshape(1).to(torch.float32)
+        gathered = [torch.empty_like(score) for _ in range(self.n)]
+        self._collective(
+            "all_gather", self.n * score.element_size(), dev,
+            lambda: dist.all_gather(gathered, score, group=self.group))
+        scores = torch.cat(gathered)
+        leaves = tree.leaves(new_params)
+        if self.fedx:
+            # the first index on ties, as jnp.argmin; read on the host
+            winner = int(torch.argmin(scores))
+            flat, unravel = ravel_params(new_params)
+            self._collective(
+                "broadcast", flat.numel() * flat.element_size(), dev,
+                lambda: dist.broadcast(
+                    flat, src=dist.get_global_rank(self.group, winner),
+                    group=self.group))
+            out = [a.to(l.dtype) for a, l in zip(tree.leaves(unravel(flat)),
+                                                  leaves)]
+        else:
+            flat = torch.cat([l.reshape(-1).to(torch.float32)
+                              for l in leaves])
+            self._collective(
+                "all_reduce", self.n * flat.numel() * flat.element_size(),
+                dev, lambda: dist.all_reduce(flat, group=self.group))
+            flat /= self.n
+            out = [p.reshape(l.shape).to(l.dtype) for p, l in zip(
+                torch.split(flat, [l.numel() for l in leaves]), leaves)]
+        return tree.unflatten(tree.structure(new_params), out), scores
+
+
+def make_sharded_fedx_round(task: Task, hp: ClientHP, mh: Metaheuristic,
+                            mesh, axis: str = "clients") -> MeshRound:
+    """Mesh placement of the FedX round: clients map to the ranks of
+    ``axis`` (a ``DeviceMesh`` dim), local training runs with zero
+    collectives, and the cross-rank traffic is one float32 all-gather (N
+    x 4 bytes) plus one broadcast of the winner's raveled weights from its
+    rank (M bytes) — see repro_torch.core.distributed.  The winner is
+    ``argmin(scores)``, read on the host once a round."""
+    return MeshRound(make_client_update(task, hp, mh), mesh.get_group(axis),
+                     fedx=True)
+
+
+def make_sharded_fedavg_round(task: Task, hp: ClientHP, mesh,
+                              axis: str = "clients") -> MeshRound:
+    """Mesh placement of FedAvg: a full-model all-reduce every round (each
+    leaf's float32 sum, in one buffer, over the group's size, cast back to
+    the leaf's type), plus the score all-gather."""
+    return MeshRound(make_client_update(task, hp, None), mesh.get_group(axis),
+                     fedx=False)

@@ -62,7 +62,11 @@ def _rotl(x, r: int):
 def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 hash (20 rounds) of counter words ``(x1, x2)`` under
     key words ``(k1, k2)``; all int64 tensors holding 32-bit values,
-    broadcast together.  Returns the two output words."""
+    broadcast together.  Returns the two output words (only their shape
+    and type on the meta device)."""
+    if x1.device.type == "meta":
+        shape = torch.broadcast_shapes(k1.shape, k2.shape, x1.shape, x2.shape)
+        return (x1.new_empty(shape), x1.new_empty(shape))
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
@@ -86,8 +90,11 @@ def fill(key: torch.Tensor, shape: Shape, draw, dtype) -> torch.Tensor:
     """A draw of ``shape`` in ``dtype``, where ``draw(start, n)`` gives the
     values of the flat counters start..start+n-1.  Up to ``PIECE`` elements
     it is one call; above, each piece of ``PIECE`` counters is drawn, cast
-    and written into one preallocated output."""
+    and written into one preallocated output.  On the meta device (trees
+    of shapes only) nothing is drawn."""
     shape = _shape(shape)
+    if key.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     n = math.prod(shape)
     if n <= PIECE:
         return draw(0, n).to(dtype).reshape(shape)

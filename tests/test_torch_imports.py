@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py``
-or ``tools/`` imports JAX or the JAX package, the kernel module
+"""The port stands alone: nothing in ``src/repro_torch``, ``chip_smoke.py``,
+``tools/`` or the port's examples imports JAX or the JAX package, the kernel module
 imports (and builds nothing) where there is no ``nvcc``, and the modules
 the port copies from the reference stay copies."""
 import ast
@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted((ROOT / "tools").glob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path):
@@ -34,6 +35,8 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    assert ROOT / "examples" / "distributed_fedx_pods_torch.py" in files
+    assert PORT / "sharding" / "rules.py" in files
     bad = [(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []

@@ -980,3 +980,80 @@ def test_server_slot_past_the_cache_end_on_the_card(dtype):
                                    max_len=24, dtype=tdt)
         assert cpu_stats == stats
         assert [r.output for r in card] == [r.output for r in cpu]
+
+
+# ------------------------------------------------------ mesh schedules --
+MESH_HP = dict(local_epochs=2, mh_pop=4, mh_generations=2, lr=0.1)
+
+
+def _mesh_toy_loss(params, batch):
+    logits = batch["x"] @ params["w"] + params["b"]
+    lp = torch.log_softmax(logits, -1)
+    nll = -torch.take_along_dim(lp, batch["y"][:, None], -1).mean()
+    return nll, (logits.argmax(-1) == batch["y"]).float().mean()
+
+
+def _mesh_toy_task():
+    from repro_torch.core.client import Task
+
+    def init_params(key):
+        return {"w": R.normal(R.split(key)[0], (6, 3)) * 0.1,
+                "b": torch.zeros((3,), device=key.device)}
+    return Task(init_params, _mesh_toy_loss)
+
+
+def _mesh_rank(rank, params, shards, keys):
+    """One FedBWO round on a 2-rank host mesh on cuda:0 with the kernel:
+    this rank's launches, the scores and the new model."""
+    from repro_torch.core.client import ClientHP
+    from repro_torch.core.distributed import make_fedx_round
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.metaheuristics import bwo
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(2, device_type="cuda")
+    rnd = make_fedx_round(_mesh_toy_task(), ClientHP(**MESH_HP),
+                          bwo(use_kernel=True), mesh)
+    kernel_mod.launches = 0
+    new, scores = rnd(tree.map(lambda a: a.to(dev), params),
+                      tree.map(lambda a: a[None].to(dev), shards[rank]),
+                      keys[rank:rank + 1].to(dev))
+    return {"launches": kernel_mod.launches, "scores": scores.cpu(),
+            "params": tree.map(lambda a: a.cpu(), new),
+            "traffic": dict(rnd.traffic)}
+
+
+@pytest.mark.cuda
+def test_mesh_round_on_two_ranks_matches_the_sequential_engine():
+    """Two gloo ranks on one card (``run_ranks``), the toy task of the
+    reference's distributed test with ``bwo(use_kernel=True)``, against the
+    sequential engine in this process from the same start and keys: the
+    same winner, scores within 1e-5 relative, the new model the winner's,
+    one kernel launch a generation in each rank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core.client import ClientHP
+    from repro_torch.core.server import Server, get_strategy
+    from repro_torch.launch.mesh import run_ranks
+    kernel_mod.build()                  # once, before the ranks
+    key = R.PRNGKey(0, "cuda")
+    x = R.normal(key, (2, 4, 16, 6))
+    y = (x @ R.normal(R.PRNGKey(9, "cuda"), (6, 3))).argmax(-1)
+    shards = [{"x": x[k], "y": y[k]} for k in range(2)]
+    server = Server(_mesh_toy_task(), get_strategy("fedbwo", use_kernel=True),
+                    ClientHP(**MESH_HP), shards, key, engine="sequential")
+    start = server.global_params
+    keys = R.split(server.rng, 4)[2:]          # Server.run_round's schedule
+    outs = run_ranks(2, _mesh_rank, tree.map(lambda a: a.cpu(), start),
+                     [tree.map(lambda a: a.cpu(), s) for s in shards],
+                     keys.cpu(), timeout=300)
+    info = server.run_round()
+    want = torch.tensor(info["scores"])
+    for out in outs:
+        assert out["launches"] == MESH_HP["mh_generations"]
+        assert int(torch.argmin(out["scores"])) == info["best_client"]
+        torch.testing.assert_close(out["scores"], want, rtol=1e-5, atol=0)
+        for g, w in zip(tree.leaves(out["params"]),
+                        tree.leaves(server.global_params)):
+            torch.testing.assert_close(g, w.cpu(), rtol=1e-5, atol=1e-6)
+        assert out["traffic"] == {"all_gather": 8, "broadcast": 4 * 21}

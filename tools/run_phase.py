@@ -14,6 +14,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 22 [TREE]      # a phase of 22-27 (or several:
                                               # 24,25)
     python3 tools/run_phase.py 28 [TREE]      # a phase of 28-32 (or several)
+    python3 tools/run_phase.py 33 [TREE]      # the mesh schedules, 10 ranks
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -47,7 +48,9 @@ Whisper-medium, serving LLaVA-NeXT, and the int8 KV cache at OLMo-1B.
 ``28`` to ``32`` likewise: serving xLSTM-1.3B (and its decode against the
 full forward), training it at 12 layers, the continuous-batching server
 at OLMo-1B and at 8-layer Jamba without experts (each with the kernels at
-its shapes), and training LLaVA-NeXT at 8 layers.
+its shapes), and training LLaVA-NeXT at 8 layers.  ``33`` runs the
+mesh schedules: 3 FedBWO rounds on 10 gloo ranks sharing the card, held
+to the sequential and batched engines, and one FedAvg round.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ def main() -> int:
                                              "27"}
     new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
     if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
-                     "20") and not slice_phases and not new_paths:
+                     "20", "33") and not slice_phases and not new_paths:
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -118,6 +121,8 @@ def main() -> int:
                                       only=set(phase.split(",")))
         times = {k: v.get("shapes", v) if isinstance(v, dict) else v[-1]
                  for k, v in out.items()}
+    elif phase == "33":
+        times = cs.mesh_phase(torch)
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
