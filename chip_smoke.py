@@ -204,9 +204,24 @@ Phases, each printing its own lines; any failure exits non-zero:
     9,861,288) against the sequential and the batched FedAvg (rtol 1e-4,
     atol 1e-5); the round time (the slowest rank), the collectives'
     times, the start-up and each rank's peak memory.
-Phases 22-33 each print their seconds and the card's name and power limit
-(``python3 tools/run_phase.py 22,...,27``, ``28,...,32`` or ``33`` runs
-them alone); the script prints its total before the kernels line.
+34. flcheck (``repro_torch.analysis``) on the card: the strict audit of
+    the FL main path at full width (``FLConfig(strategy="fedbwo",
+    task="cnn", bwo_kernel=True, rounds_per_dispatch=5,
+    pipeline_blocks="on")`` through ``build_experiment(cfg,
+    audit="strict")``), its findings by rule and severity and its seconds;
+    the audited block's CUDA graph: 15 ``bwo_evolve`` kernel nodes (equal
+    to ``CapturedBlock.launches``), no device-to-host copy, no host node,
+    a replay under sync-debug "error" that raises nothing, no growth on a
+    second replay; 10 rounds of the audited build (two pipelined 5-round
+    blocks: the engine's own capture, replayed twice) against 10 of an
+    unaudited one under ``cudnn.deterministic``, bit for bit, with one
+    capture in each build's ``captures``; the strict
+    audit of FedAvg at C = 0.6; and a ``.item()`` and a float64 round
+    trip planted in a narrow block, each reported as its rule's error.
+Phases 22-34 each print their seconds and the card's name and power limit
+(``python3 tools/run_phase.py 22,...,27``, ``28,...,32``, ``33`` or
+``34`` runs them alone); the script prints its total before the kernels
+line.
 
 It then prints a JSON line of the new paths' numbers, one JSON line
 describing every ported kernel (``launches`` summed over the paths that
@@ -226,6 +241,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2553,6 +2569,215 @@ def mesh_phase(torch):
             "peak_gib": peaks}
 
 
+# Phase 34: flcheck on the card.  The strict audit of the full-width main
+# path, whose 5-round block replays one CUDA graph with 3 bwo_evolve
+# launches a round; FedAvg at C = 0.6; two planted faults at a narrow width.
+# The rounds after the audit are two pipelined blocks: the engine's own
+# capture and two replays of it.
+AUDIT_BLOCK = 5
+AUDIT_ROUNDS = 2 * AUDIT_BLOCK
+
+
+def audit_counts(report):
+    """The findings of ``report`` by (rule, severity)."""
+    out = {}
+    for f in report.findings:
+        out[f"{f.rule}/{f.severity}"] = out.get(f"{f.rule}/{f.severity}", 0) + 1
+    return out
+
+
+def audit_details(report, rule, subject):
+    """The details of ``rule``'s info finding on ``subject``."""
+    found = [f for f in report.findings if f.rule == rule
+             and f.subject == subject and f.severity == "info"]
+    check(len(found) == 1 and found[0].details,
+          f"no info finding of {rule} with details on {subject}")
+    return found[0].details
+
+
+def planted_random(kind):
+    """``repro_torch.random`` with ``split`` made bad, for the engine's
+    own calls only (the block's key schedule, once a round): a ``.item()``
+    after it, or a round trip of the keys through float64."""
+    from repro_torch import random
+    names = {k: getattr(random, k) for k in dir(random)
+             if not k.startswith("__")}
+
+    def split(key, num=2):
+        out = random.split(key, num)
+        if kind == "item":
+            out.sum().item()
+            return out
+        return out.double().long()
+    names["split"] = split
+    return types.SimpleNamespace(**names)
+
+
+def audit_block(report, subject, smi):
+    """Prints and returns the captured block's graph facts from ``report``."""
+    sync = audit_details(report, "one-sync-per-block", subject)
+    reuse = audit_details(report, "donation-honored", subject)
+    facts = {"nodes": sync["kinds"], "memcpy": sync["memcpy"],
+             "bwo_evolve_nodes": sync["kernels"].get("bwo_evolve_kernel", 0),
+             "launches_by_replay": sync["launches"],
+             "device_to_host": sync["memcpy"].get("DtoH", 0),
+             "host_nodes": sync["kinds"].get("HOST", 0),
+             "audit_seconds_by_part": sync["seconds"], **reuse}
+    print(f"  {subject}'s graph: nodes {facts['nodes']}, memcpy by "
+          f"direction {facts['memcpy']}, bwo_evolve kernel nodes "
+          f"{facts['bwo_evolve_nodes']} (CapturedBlock.launches "
+          f"{facts['launches_by_replay']}), device-to-host copies "
+          f"{facts['device_to_host']}, host nodes {facts['host_nodes']}; "
+          f"a replay under sync-debug 'error' raised nothing; static "
+          f"inputs kept their addresses {reuse['ptrs_kept']}, allocated "
+          f"{reuse['allocated_first']:,} B after the first replay and "
+          f"{reuse['allocated_second']:,} B after the second; the block's "
+          f"audit seconds by part {facts['audit_seconds_by_part']} ({smi})")
+    check(facts["device_to_host"] == 0 and facts["host_nodes"] == 0,
+          f"{subject}'s graph holds device-to-host nodes")
+    check(reuse["ptrs_kept"]
+          and reuse["allocated_second"] <= reuse["allocated_first"],
+          f"{subject}'s graph does not reuse its buffers")
+    return facts
+
+
+def audit_phase(torch, smi):
+    """Phase 34: ``build_experiment(cfg, audit="strict")`` of the FL main
+    path at full width (FedBWO on the paper CNN with the kernel, 5-round
+    pipelined blocks): the findings by rule and severity, the build's and
+    the audit's seconds; the audited block's graph: 15 bwo_evolve kernel
+    nodes, equal to ``CapturedBlock.launches``, no device-to-host copy and
+    no host node, a clean sync-debug replay, no growth on the second
+    replay; 10 rounds (two pipelined 5-round blocks, each build capturing
+    its own graph once and replaying it twice) of the audited build
+    against 10 of an unaudited one under cudnn.deterministic, bit for
+    bit; the strict audit of FedAvg at
+    C = 0.6; a ``.item()`` and a float64 round trip planted in the
+    block's key schedule at a narrow width, which must give
+    ``one-sync-per-block`` and ``no-host-callback-in-scan`` errors (the
+    capture refuses the sync) and a ``no-f64`` error.  Returns the
+    numbers."""
+    from repro_torch import tree
+    from repro_torch.analysis.audit import audit_experiment
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.kernels.bwo_evolve import bwo_evolve as bwo_kernel
+    print("== 34. flcheck: the strict audit of the FL main path at full "
+          "width on the card, FedAvg, and two planted faults")
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", rounds_per_dispatch=AUDIT_BLOCK,
+                   pipeline_blocks="on", max_rounds=AUDIT_ROUNDS, tau=1.01,
+                   patience=AUDIT_ROUNDS)
+    out = {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        plain = build_experiment(cfg)
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audited = build_experiment(cfg, audit="strict")
+        out["build_and_audit_s"] = time.perf_counter() - t0
+        report = audited.audit_report
+        out["findings"] = audit_counts(report)
+        print(f"  fedbwo, full width: {report.counts()}; by rule and "
+              f"severity {out['findings']}; build {out['build_s']:.2f} s, "
+              f"build and strict audit {out['build_and_audit_s']:.2f} s "
+              f"({smi})")
+        check(report.ok, "the main path's strict audit has errors")
+        block = audit_block(report, f"block[fedbwo x{AUDIT_BLOCK}]", smi)
+        out["block"] = block
+        check(block["bwo_evolve_nodes"] == AUDIT_BLOCK * 3
+              == block["launches_by_replay"],
+              f"{block['bwo_evolve_nodes']} bwo_evolve nodes in the block's "
+              f"graph, {block['launches_by_replay']} launches a replay; "
+              f"want {AUDIT_BLOCK * 3}")
+        runs = {}
+        for name, exp in (("audited", audited), ("unaudited", plain)):
+            bwo_kernel.launches = 0
+            t0 = time.perf_counter()
+            logs = exp.run().logs
+            torch.cuda.synchronize()
+            out[f"{name}_run_s"] = time.perf_counter() - t0
+            eng = exp.server._engine
+            runs[name] = (logs, bwo_kernel.launches,
+                          tree.leaves(exp.server.global_params),
+                          list(eng.captures), eng.warmup_launches)
+        (la, na, pa, ca, wa), (lu, nu, pu, cu, wu) = (runs["audited"],
+                                                     runs["unaudited"])
+        same = (len(la) == len(lu) == AUDIT_ROUNDS
+                and all(a.info["scores"] == b.info["scores"]
+                        and a.info["best_client"] == b.info["best_client"]
+                        and a.test_loss == b.test_loss
+                        for a, b in zip(la, lu))
+                and all(torch.equal(a, b) for a, b in zip(pa, pu)))
+        out["rounds_bit_for_bit"] = same
+        out["launches"] = {"audited": na, "unaudited": nu,
+                           "warm_up": {"audited": wa, "unaudited": wu}}
+        out["engine_captures"] = {"audited": ca, "unaudited": cu}
+        print(f"  {AUDIT_ROUNDS} rounds ({AUDIT_ROUNDS // AUDIT_BLOCK} "
+              f"pipelined {AUDIT_BLOCK}-round blocks) of the audited build "
+              f"against the unaudited one under cudnn.deterministic: "
+              f"scores, winners, test loss and model bit for bit {same}; "
+              f"bwo_evolve launches {na} and {nu} (of them the warm-up "
+              f"round's {wa} and {wu}); the engine's captures {ca} and {cu}; "
+              f"{out['audited_run_s']:.2f} s and {out['unaudited_run_s']:.2f} s "
+              f"({smi})")
+        check(len(ca) == len(cu) == 1 and ca == cu,
+              f"want one capture of one block shape in each build, got "
+              f"{ca} and {cu}")
+        check(same and na == nu == AUDIT_ROUNDS * 3 + wa and wa == wu == 3,
+              "an audited build's rounds differ from an unaudited build's")
+    finally:
+        cudnn.deterministic = saved
+
+    t0 = time.perf_counter()
+    fedavg = build_experiment(dataclasses.replace(
+        cfg, strategy="fedavg", bwo_kernel=False, client_ratio=0.6),
+        audit="strict")
+    out["fedavg_build_and_audit_s"] = time.perf_counter() - t0
+    out["fedavg_findings"] = audit_counts(fedavg.audit_report)
+    print(f"  fedavg, C = 0.6, full width: {fedavg.audit_report.counts()}; "
+          f"by rule and severity {out['fedavg_findings']}; build and strict "
+          f"audit {out['fedavg_build_and_audit_s']:.2f} s ({smi})")
+    out["fedavg_block"] = audit_block(fedavg.audit_report,
+                                      f"block[fedavg x{AUDIT_BLOCK}]", smi)
+    del fedavg, audited, plain
+
+    narrow = FLConfig(strategy="fedbwo", task="mlp", bwo_kernel=True,
+                      device="cuda", n_clients=3, n_train=90, n_test=30,
+                      mh_pop=2, mh_generations=1, local_epochs=1,
+                      rounds_per_dispatch=2)
+    want = {"item": {"one-sync-per-block", "no-host-callback-in-scan"},
+            "double": {"no-f64"}}
+    saved_random = engine_mod.random
+    for kind, rules in want.items():
+        exp = build_experiment(narrow)
+        engine_mod.random = planted_random(kind)
+        try:
+            report = audit_experiment(exp, lint=False)
+        finally:
+            engine_mod.random = saved_random
+        torch.cuda.synchronize()
+        errors = sorted({(f.rule, f.subject, f.message[:120])
+                         for f in report.errors})
+        out[f"planted_{kind}"] = sorted({f.rule for f in report.errors})
+        print(f"  planted {kind!r} in the block's key schedule: "
+              f"{len(report.errors)} error(s) {out[f'planted_{kind}']}")
+        for e in errors:
+            print(f"    {e}")
+        check(rules <= set(out[f"planted_{kind}"]),
+              f"the planted {kind!r} gave errors {out[f'planted_{kind}']}, "
+              f"want {sorted(rules)}")
+        if kind == "item":
+            check(any(f.rule == "one-sync-per-block"
+                      and "capture failed" in f.message
+                      for f in report.errors),
+                  "the card's capture did not refuse the planted sync")
+    return out
+
+
 def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
     """bwo_evolve's least time on this card for one launch over P child
     rows: the distinct parent rows this draw reads, both bit planes and
@@ -3448,6 +3673,10 @@ def main() -> int:
     mesh = run_numbered({"33": lambda: mesh_phase(torch)}, smi,
                         t_start, None)["33"]
 
+    # ------------------------------------------------------ 34. flcheck --
+    audit = run_numbered({"34": lambda: audit_phase(torch, smi)}, smi,
+                         t_start, None)["34"]
+
     # --------------------------------------------------------- results --
     def no_routes(numbers):
         return {k: v for k, v in numbers.items() if "routes" not in k}
@@ -3464,7 +3693,8 @@ def main() -> int:
                                 "jamba server, 8 layers": jamba_srv,
                                 "llava-next train step, 8 layers":
                                     no_routes(llava_step),
-                                "fedbwo mesh, 10 ranks": mesh}}))
+                                "fedbwo mesh, 10 ranks": mesh,
+                                "flcheck, fedbwo at full width": audit}}))
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",

@@ -120,18 +120,22 @@ def build_experiment(cfg: FLConfig, *, task: Optional[Task] = None,
     """Materialize an :class:`Experiment` from a config on ``cfg.device``:
     synthesize the dataset, partition and batch it across clients, and
     construct the ``Server``.  Overrides given as tensors must already
-    lie on that device.  ``audit`` other than "off" raises: the static
-    auditor is not ported yet (ROADMAP.md, queue 1, item 11).
+    lie on that device.
+
+    ``audit`` opts the build into the flcheck static auditor
+    (``repro_torch.analysis``, knobs.AUDIT_MODES): ``"report"`` runs the
+    rule catalogue over the engine-built round programs and prints the
+    findings; ``"strict"`` (or ``audit=True``) additionally raises
+    :class:`repro_torch.analysis.AuditError` on any error-severity
+    finding, so a contract regression fails the build before any round
+    runs.  The audit leaves the server as it found it.
     """
     # local imports: repro_torch.data imports repro_torch.core.client
     from repro_torch.data.loader import client_batches
     from repro_torch.data.partition import partition_dirichlet, partition_iid
     from repro_torch.data.synthetic import cnn_task, make_cifar_like, mlp_task
 
-    if parse_audit(audit) != "off":
-        raise NotImplementedError(
-            "the flcheck static auditor is not ported yet (ROADMAP.md, "
-            "queue 1, item 11); pass audit='off'")
+    mode = parse_audit(audit)
     device = resolve_device(cfg.device)
     if task is None:
         task = cnn_task() if cfg.task == "cnn" else mlp_task()
@@ -157,8 +161,16 @@ def build_experiment(cfg: FLConfig, *, task: Optional[Task] = None,
                     engine=cfg.engine,
                     rounds_per_dispatch=cfg.rounds_per_dispatch,
                     pipeline_blocks=cfg.pipeline_blocks)
-    return Experiment(cfg=cfg, server=server, eval_data=eval_data,
-                      stop=cfg.stop_conditions())
+    experiment = Experiment(cfg=cfg, server=server, eval_data=eval_data,
+                            stop=cfg.stop_conditions())
+    if mode != "off":
+        # local import: repro_torch.analysis.audit imports this module's
+        # collaborators from repro_torch.core, so the hook resolves lazily
+        from repro_torch.analysis.audit import audit_experiment
+        experiment.audit_report = audit_experiment(
+            experiment, strict=(mode == "strict"))
+        print(experiment.audit_report.render())
+    return experiment
 
 
 @dataclasses.dataclass
@@ -168,6 +180,7 @@ class Experiment:
     server: Server
     eval_data: Any
     stop: StopConditions
+    audit_report: Any = None        # the build's flcheck Report, if audited
 
     @property
     def meter(self):

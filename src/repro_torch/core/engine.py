@@ -43,9 +43,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import random, tree
+from repro_torch.analysis.walker import loss_uses_conv
 from repro_torch.convert import ravel_params
 from repro_torch.core.client import (ClientHP, Task, make_client_update,
                                      make_update)
@@ -78,32 +78,16 @@ def resolve_vectorize(mode: str, device) -> str:
     return "scan" if torch.device(device).type == "cpu" else "vmap"
 
 
-class _ConvRecorder(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.seen = False
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket in (torch.ops.aten.convolution,
-                                   torch.ops.aten._convolution):
-            self.seen = True
-        return func(*args, **(kwargs or {}))
-
-
 def task_uses_conv(task: Task, params, sample_batch) -> bool:
     """Run ``task.loss_fn`` once on one batch and report whether it
     reached a convolution.  Drives the CPU engine="auto" decision, as in
     the reference: convolutions of vmapped weights become grouped
     convolutions, which are slow on the CPU, so conv tasks stay on the
-    sequential engine there.  The reference walks a jaxpr; the port
-    records the ``aten`` ops the call dispatches.  Returns True (the
-    conservative answer) when the call raises."""
-    try:
-        with torch.no_grad(), _ConvRecorder() as rec:
-            task.loss_fn(params, sample_batch)
-    except Exception:
-        return True
-    return rec.seen
+    sequential engine there.  The reference walks a jaxpr through its
+    walker; the port records the ops the call dispatches through its own
+    (:func:`repro_torch.analysis.walker.loss_uses_conv`).  Returns True
+    (the conservative answer) when the call raises."""
+    return loss_uses_conv(task.loss_fn, params, sample_batch)
 
 
 def stack_clients(client_data: Sequence[Any], pad: bool = False):
@@ -312,7 +296,7 @@ def make_fused_rounds(task: Task, strategy, hp: ClientHP,
     def block_fn(global_params, rng, data, mask, eval_batch, round_offset):
         due = eval_due(n_rounds,
                        eval_every if eval_batch is not None else 0,
-                       int(round_offset))
+                       int(round_offset))  # flcheck: ok (a host int)
         params, logs = global_params, []
         for i in range(n_rounds):
             # Server.run_round's key schedule, derived on the device
@@ -355,20 +339,27 @@ class CapturedBlock:
 
     The capture records ``bwo_evolve``'s launches without running them;
     each replay runs them, and counts them (``launches`` a replay).
+
+    With ``keep_graph`` the graph keeps its ``cudaGraph_t`` after
+    instantiation, so that its nodes can be dumped
+    (:func:`repro_torch.launch.graph_analysis.dump_graph`, flcheck's read
+    of a block); the engine's own captures drop it.
     """
 
     def __init__(self, block_fn, params, rng, data, mask, eval_batch,
-                 round_offset: int, stream):
+                 round_offset: int, stream, keep_graph: bool = False):
         self.params = tree.map(torch.clone, params)
         self.rng = rng.clone()
         self.eval_batch = (None if eval_batch is None
                            else tree.map(torch.clone, eval_batch))
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         before = bwo_kernel.launches
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, stream=stream):
             self.out = block_fn(self.params, self.rng, data, mask,
                                 self.eval_batch, round_offset)
+        if keep_graph:
+            self.graph.instantiate()
         self.capture_s = time.perf_counter() - t0
         self.launches = bwo_kernel.launches - before
         bwo_kernel.launches = before        # recorded, not yet run
@@ -404,7 +395,14 @@ class BatchedRoundEngine:
     the ``m = max(C * n, 1)`` participants, gathers their shards and runs
     the round over shape ``(m, ...)``.  The reference's
     ``traced_participant_counts`` counts jit traces; eager torch traces
-    nothing, so it has no counterpart here.
+    nothing, and what the card builds once and reuses is a block's CUDA
+    graph, so its counterpart here is ``self.captures``: one entry per
+    capture, in capture order, the block's shape (``rounds_per_dispatch``,
+    ``eval_every`` and the rounds it evaluates), as the reference's entry
+    is the participant count and not the whole signature.  An entry that
+    appears twice is one block shape captured twice: the graph cache
+    missed on a shape it holds, because the eval batch's shapes changed
+    (flcheck's ``compile-cache-stability`` rule reads it).
 
     Fused blocks (:meth:`run_block`): one block function per
     ``(rounds_per_dispatch, eval_every)``, as the reference caches one
@@ -445,6 +443,7 @@ class BatchedRoundEngine:
         self._task, self._strategy, self._hp = task, strategy, hp
         self._fused: Dict[tuple, Callable] = {}
         self.graphs: Dict[tuple, CapturedBlock] = {}
+        self.captures: List[tuple] = []
         self.warmup_launches = 0
         self._capture_stream = None
         if self.is_fedx:
@@ -485,11 +484,11 @@ class BatchedRoundEngine:
         if self.device.type != "cuda":
             return block(global_params, rng, self.data, self.mask,
                          eval_batch, round_offset)
-        key = (int(rounds_per_dispatch), int(eval_every),
-               eval_due(int(rounds_per_dispatch), int(eval_every),
-                        int(round_offset)),
-               tuple(tuple(l.shape) for l in tree.leaves(eval_batch))
-               if eval_batch is not None else None)
+        shape = (int(rounds_per_dispatch), int(eval_every),
+                 eval_due(int(rounds_per_dispatch), int(eval_every),
+                          int(round_offset)))
+        key = shape + (tuple(tuple(l.shape) for l in tree.leaves(eval_batch))
+                       if eval_batch is not None else None,)
         graph = self.graphs.get(key)
         if graph is None:
             stream = self._warm_up(global_params, rng, eval_batch,
@@ -498,6 +497,7 @@ class BatchedRoundEngine:
                                   self.mask, eval_batch, round_offset,
                                   stream)
             self.graphs[key] = graph
+            self.captures.append(shape)
         return graph(global_params, rng, eval_batch)
 
     def _warm_up(self, global_params, rng, eval_batch, eval_every: int):

@@ -12,8 +12,8 @@ vmapped program over the clients); on the CPU it keeps the conv task
 sequential, and ``--engine batched --vectorize vmap|scan`` batches it
 anyway.  ``--rounds-per-dispatch auto`` (5 on the batched engine) runs
 blocks of rounds, one CUDA graph replay each on the card, double-buffered
-by default (``--pipeline-blocks``).  ``--audit`` is not ported yet and
-raises.
+by default (``--pipeline-blocks``).  ``--audit`` runs the flcheck
+static auditor (``repro_torch.analysis``) on the build before any round.
 """
 from __future__ import annotations
 
@@ -78,8 +78,9 @@ def main():
                          "fused blocks run the cadence on the device")
     ap.add_argument("--audit", nargs="?", const="strict", default="off",
                     type=validate_audit, metavar="|".join(AUDIT_MODES),
-                    help="static auditor (not ported yet: anything but "
-                         "'off' raises)")
+                    help="run the flcheck static auditor "
+                         "(repro_torch.analysis) before training; bare "
+                         "flag = strict (fail on error findings)")
     ap.add_argument("--bwo-kernel", action="store_true",
                     help="run every BWO generation through the "
                          "hand-written bwo_evolve CUDA kernel")

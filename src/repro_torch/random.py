@@ -23,7 +23,7 @@ times, ``choice`` without replacement takes a permutation's prefix, and
 
 A draw of more than ``PIECE`` elements is made piece by piece over
 disjoint counter ranges into one preallocated output, which gives the same
-values element for element and bounds the int64 and float64 temporaries by
+values element for element and bounds the int64 temporaries by
 the piece, not the draw (a stack of experts is over a billion elements).
 """
 from __future__ import annotations
@@ -148,21 +148,40 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     # from pageable memory and a sync, which a CUDA graph capture refuses
     lo = torch.full((), minval, dtype=dtype, device=key.device)
     hi = torch.full((), maxval, dtype=dtype, device=key.device)
-    return fill(key, shape, lambda start, n: _uniform_at(key, start, n, lo, hi),
+    exact = span_is_power_of_two(minval, maxval)
+    return fill(key, shape,
+                lambda start, n: _uniform_at(key, start, n, lo, hi, exact),
                 dtype)
 
 
-def _uniform_at(key, start: int, n: int, lo, hi):
+def span_is_power_of_two(minval: float, maxval: float) -> bool:
+    """Whether the float32 span ``maxval - minval`` (as XLA computes it) is
+    a normal power of two: then ``f * span`` is exact in float32 for every
+    ``f = m * 2^-23`` that ``uniform`` makes.  Decided on the host."""
+    span = np.float32(maxval) - np.float32(minval)
+    return bool(np.isfinite(span) and span >= np.finfo(np.float32).tiny
+                and np.frexp(span)[0] == 0.5)
+
+
+def _uniform_at(key, start: int, n: int, lo, hi, exact: bool):
     b = _bits_at(key, start, n)
     # the float in [1, 2) with mantissa m = b >> 9, less 1, is m * 2^-23
     # exactly; computed so, not by a bit cast, since older torch has no
     # vmap rule for a dtype view
     f = (b >> 9).to(torch.float32) * (1.0 / (1 << 23))
-    # XLA contracts f * (hi - lo) + lo into one fused multiply-add; the
-    # float64 product of two float32 values is exact, so this rounds as
-    # the FMA does (barring a double-rounding tie)
-    scaled = (f.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    return torch.maximum(lo, _scale(f, lo, hi, exact))
+
+
+def _scale(f, lo, hi, exact: bool):
+    """``f * (hi - lo) + lo`` as XLA computes it: contracted into one fused
+    multiply-add.  With a power-of-two span (``exact``) the float32 product
+    is exact, so the add's one rounding is the FMA's.  Any other span keeps
+    the product in float64, where the product of two float32 values is
+    exact, and rounds once at the end (barring a double-rounding tie); the
+    port's round programs draw from no such span and stay float32."""
+    if exact:
+        return f * (hi - lo) + lo
+    return (f.double() * (hi - lo).double() + lo.double()).float()
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
@@ -211,6 +230,7 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
 
 # the float32 next after -1 towards 0: the low end of normal's uniform
 _NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+_NORMAL_EXACT = span_is_power_of_two(_NORMAL_LO, 1.0)   # the span rounds to 2
 
 
 def normal(key: torch.Tensor, shape: Shape = (),
@@ -228,8 +248,9 @@ def normal_at(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
     ``key``: the piece ``fill`` asks for."""
     lo = torch.full((), _NORMAL_LO, dtype=torch.float32, device=key.device)
     hi = torch.full((), 1.0, dtype=torch.float32, device=key.device)
-    return _erfinv(_uniform_at(key, start, n, lo, hi)) * torch.full(
-        (), math.sqrt(2.0), dtype=torch.float32, device=key.device)
+    u = _uniform_at(key, start, n, lo, hi, _NORMAL_EXACT)
+    return _erfinv(u) * torch.full((), math.sqrt(2.0), dtype=torch.float32,
+                                   device=key.device)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

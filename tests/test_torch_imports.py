@@ -37,6 +37,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20 and all(f.exists() for f in files)
     assert ROOT / "examples" / "distributed_fedx_pods_torch.py" in files
     assert PORT / "sharding" / "rules.py" in files
+    assert PORT / "analysis" / "audit.py" in files
+    assert PORT / "launch" / "graph_analysis.py" in files
     bad = [(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
@@ -59,11 +61,14 @@ def test_kernel_module_imports_without_nvcc(kernel):
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("name", ["comm", "knobs"])
-def test_copied_modules_match_the_reference(name):
-    """``core/comm.py`` and ``core/knobs.py`` are the reference's pure-Python
-    modules, copied below a two-line header."""
-    port = (PORT / "core" / f"{name}.py").read_text().splitlines()
-    ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_text()
-    assert port[0].startswith("# A copy of repro/core/")
+@pytest.mark.parametrize("package,name", [
+    pytest.param("core", "comm", id="comm"),
+    pytest.param("core", "knobs", id="knobs"),
+    pytest.param("analysis", "report", id="report")])
+def test_copied_modules_match_the_reference(package, name):
+    """``core/comm.py``, ``core/knobs.py`` and ``analysis/report.py`` are
+    the reference's pure-Python modules, copied below a two-line header."""
+    port = (PORT / package / f"{name}.py").read_text().splitlines()
+    ref = (ROOT / "src" / "repro" / package / f"{name}.py").read_text()
+    assert port[0].startswith(f"# A copy of repro/{package}/")
     assert "\n".join(port[2:]) + "\n" == ref

@@ -207,3 +207,45 @@ def test_normal_at_torch_default_thread_count(tmp_path):
                                             (512, 256)))
         np.testing.assert_allclose(got[f"s{seed}"], want, rtol=1e-6, atol=1e-6,
                                    err_msg=f"{int(got['threads'])} threads")
+
+
+INTERVALS = {"(0, 1)": (0.0, 1.0), "(nextafter(-1, 0), 1)": (R._NORMAL_LO, 1.0),
+             "(-1, 1)": (-1.0, 1.0),
+             "(tiny, 1)": (float(np.finfo(np.float32).tiny), 1.0)}
+
+
+@pytest.mark.parametrize("interval", list(INTERVALS))
+def test_float32_scaling_equals_the_float64_route_on_every_mantissa(interval):
+    """Every interval the port draws from has a float32 span that is a
+    power of two, where ``f * span + lo`` in float32 is the float64 route's
+    (and XLA's fused multiply-add's) result for all 2^23 values of f."""
+    minval, maxval = INTERVALS[interval]
+    assert R.span_is_power_of_two(minval, maxval)
+    f = torch.arange(1 << 23, dtype=torch.float32) * (1.0 / (1 << 23))
+    lo = torch.full((), minval, dtype=torch.float32)
+    hi = torch.full((), maxval, dtype=torch.float32)
+    assert torch.equal(R._scale(f, lo, hi, True), R._scale(f, lo, hi, False))
+
+
+def test_other_spans_keep_the_float64_route():
+    """A span that is not a power of two (-2, 3), or none (an empty or
+    subnormal one), is not taken by the float32 route."""
+    for minval, maxval in ((-2.0, 3.0), (0.0, 3.0), (1.0, 1.0), (0.0, 1e-40)):
+        assert not R.span_is_power_of_two(minval, maxval)
+
+
+@pytest.mark.parametrize("draw", ["uniform", "bernoulli", "normal", "gumbel"])
+def test_draws_make_no_float64_tensor(draw):
+    """The op recorder sees no float64 output in the samplers a round
+    program calls; the (-2, 3) uniform is the positive control."""
+    from repro_torch.analysis.walker import iter_dtypes, record_ops
+    key = R.PRNGKey(3, "cpu")
+    calls = {"uniform": lambda: R.uniform(key, (64,)),
+             "bernoulli": lambda: R.bernoulli(key, 0.3, (64,)),
+             "normal": lambda: R.normal(key, (64,)),
+             "gumbel": lambda: R.gumbel(key, (64,))}
+    rec, _ = record_ops(calls[draw])
+    assert "float64" not in set(iter_dtypes(rec))
+    rec, _ = record_ops(lambda: R.uniform(key, (64,), minval=-2.0,
+                                          maxval=3.0))
+    assert "float64" in set(iter_dtypes(rec))

@@ -87,11 +87,12 @@ def test_device_cuda_without_a_card_raises():
 
 
 def test_not_yet_ported_options_raise():
-    """The auditor raises; the batched engine, fused rounds on it and
-    every FedX strategy are ported, and an unknown strategy is refused."""
-    cfg = api.FLConfig(device="cpu", n_clients=2, n_train=20, n_test=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_experiment(cfg, audit="report")
+    """No option is left unported: the auditor runs and reports, the
+    batched engine, fused rounds on it and every FedX strategy build, and
+    an unknown strategy is refused."""
+    cfg = api.FLConfig(device="cpu", task="mlp", n_clients=2, n_train=20,
+                       n_test=10, mh_pop=2, mh_generations=1, local_epochs=1)
+    assert api.build_experiment(cfg, audit="report").audit_report.ok
     fused = api.build_experiment(api.FLConfig(
         device="cpu", engine="batched", rounds_per_dispatch=5,
         n_clients=2, n_train=20, n_test=10)).server

@@ -15,6 +15,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
                                               # 24,25)
     python3 tools/run_phase.py 28 [TREE]      # a phase of 28-32 (or several)
     python3 tools/run_phase.py 33 [TREE]      # the mesh schedules, 10 ranks
+    python3 tools/run_phase.py 34 [TREE]      # flcheck on the card
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -50,7 +51,10 @@ full forward), training it at 12 layers, the continuous-batching server
 at OLMo-1B and at 8-layer Jamba without experts (each with the kernels at
 its shapes), and training LLaVA-NeXT at 8 layers.  ``33`` runs the
 mesh schedules: 3 FedBWO rounds on 10 gloo ranks sharing the card, held
-to the sequential and batched engines, and one FedAvg round.
+to the sequential and batched engines, and one FedAvg round.  ``34``
+runs flcheck on the card: the strict audit of the FL main path at full
+width (its block's CUDA graph read), its rounds against an unaudited
+build's, FedAvg's audit and two planted faults.
 """
 from __future__ import annotations
 
@@ -65,7 +69,8 @@ def main() -> int:
                                              "27"}
     new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
     if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
-                     "20", "33") and not slice_phases and not new_paths:
+                     "20", "33", "34") and not slice_phases \
+            and not new_paths:
         print(__doc__, file=sys.stderr)
         return 2
     tree = Path(sys.argv[2] if len(sys.argv) > 2
@@ -123,6 +128,14 @@ def main() -> int:
                  for k, v in out.items()}
     elif phase == "33":
         times = cs.mesh_phase(torch)
+    elif phase == "34":
+        import subprocess
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip()
+        print(smi)
+        times = cs.audit_phase(torch, smi)
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
