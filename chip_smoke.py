@@ -218,10 +218,25 @@ Phases, each printing its own lines; any failure exits non-zero:
     capture in each build's ``captures``; the strict
     audit of FedAvg at C = 0.6; and a ``.item()`` and a float64 round
     trip planted in a narrow block, each reported as its rule's error.
-Phases 22-34 each print their seconds and the card's name and power limit
-(``python3 tools/run_phase.py 22,...,27``, ``28,...,32``, ``33`` or
-``34`` runs them alone); the script prints its total before the kernels
-line.
+35. the dry run and the cost model: (a) ``python -m
+    repro_torch.launch.dryrun`` at full width in subprocesses started
+    together (a fake world of 256 or 512 ranks in each, host-only, so it
+    never meets phase 33's gloo world): OLMo-1B ``train_4k`` on pod16x16
+    and on pod2x16x16, DeepSeek-V2 ``decode_32k`` on pod16x16 (the expert-
+    parallel dispatch's all-gather), and ``--fedx --arch olmo-1b`` on
+    pod2x16x16; each combination's seconds, FLOPs and HBM bytes per
+    device, collectives by kind, cross-pod bytes, dominant term and bound
+    beside 6·N·D ÷ chips; the FedX round's cross-pod bytes below
+    ``local_steps`` synchronous steps' (the paper's Fig. 6 at pod scale).
+    (b) phase 19's OLMo-1B train step (4 x 1024, one card): timed, then
+    one step recorded (``record_ops(detail=True)``) with its launches
+    counted (32 flash forwards, 16 backwards) and ``graph_analysis.analyze``
+    run on it: its dot FLOPs beside ``FlopCounterMode``'s count of the same
+    step, the roofline's bound beside the median step, the step's share.
+Phases 22-35 each print their seconds and the card's name and power limit
+(``python3 tools/run_phase.py 22,...,27``, ``28,...,32``, ``33``, ``34``
+or ``35`` runs them alone); the script prints its total before the
+kernels line.
 
 It then prints a JSON line of the new paths' numbers, one JSON line
 describing every ported kernel (``launches`` summed over the paths that
@@ -2578,6 +2593,219 @@ AUDIT_BLOCK = 5
 AUDIT_ROUNDS = 2 * AUDIT_BLOCK
 
 
+# Phase 35: the dry run at full width (host-only subprocesses) and the cost
+# model against the card.  Each combination: (tag, the dry run's flags).
+DRYRUN_COMBOS = (
+    ("olmo-1b train_4k pod16x16", ["--arch", "olmo-1b", "--shape",
+                                   "train_4k"]),
+    ("olmo-1b train_4k pod2x16x16", ["--arch", "olmo-1b", "--shape",
+                                     "train_4k", "--multi-pod"]),
+    ("deepseek-v2-236b decode_32k pod16x16",
+     ["--arch", "deepseek-v2-236b", "--shape", "decode_32k"]),
+    ("olmo-1b fedx round pod2x16x16", ["--arch", "olmo-1b", "--fedx"]))
+DRYRUN_LOCAL_STEPS = 8           # the FedX round's, the dry run's default
+DRYRUN_TIMEOUT = 600             # seconds, all four together
+
+
+def _dryrun_file(flags):
+    arch = flags[flags.index("--arch") + 1]
+    if "--fedx" in flags:
+        return f"{arch}__fedx_round__pod2x16x16.json"
+    shape = flags[flags.index("--shape") + 1]
+    return (f"{arch}__{shape}__"
+            f"{'pod2x16x16' if '--multi-pod' in flags else 'pod16x16'}.json")
+
+
+def start_dryruns(out_dir):
+    """Start every ``DRYRUN_COMBOS`` dry run, each in its own process."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for tag, flags in DRYRUN_COMBOS:
+        log = open(out_dir / (_dryrun_file(flags) + ".log"), "w")
+        procs[tag] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+             "--force", "--out", str(out_dir)], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter())
+    return procs
+
+
+def finish_dryruns(procs, out_dir):
+    """Wait for the dry runs (the caller kills any left at the time limit)
+    and read their JSON, by tag."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    results, failed = {}, []
+    for tag, flags in DRYRUN_COMBOS:
+        proc, log, t0 = procs[tag]
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = "timed out"
+        wall = time.perf_counter() - t0
+        log.close()
+        path = out_dir / _dryrun_file(flags)
+        if rc != 0 or not path.exists():
+            tail = (out_dir / (path.name + ".log")).read_text()[-1500:]
+            failed.append(f"{tag}: exit {rc}\n{tail}")
+            continue
+        results[tag] = json.loads(path.read_text())
+        results[tag]["process_s"] = wall
+    check(not failed, "dry runs failed: " + "\n".join(failed))
+    return results
+
+
+def recorded_train_step(torch, counters, after_timing):
+    """Phase 35 (b): phase 19's OLMo-1B train step (4 x 1024, one card)
+    timed, ``after_timing()`` called, then one step recorded and counted
+    by the cost model.  Returns the recorded step's launches and the
+    step's numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import random
+    from repro_torch.analysis.walker import record_ops
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_token_dataset
+    from repro_torch.launch.analysis import roofline
+    from repro_torch.launch.graph_analysis import analyze
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import build_model
+    from repro_torch import optim
+    _, cfg, _, want_launches, _ = train_cells()["19"]
+    B, S, steps = 4, 1024, 5
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    model = build_model(cfg, max_seq=S)
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 10, 20))
+    train_step, init_state = make_train_step(model, opt)
+    state = init_state(random.PRNGKey(0, dev))
+    data = make_token_dataset(random.PRNGKey(1, dev), n_seqs=B * steps,
+                              seq_len=S, vocab=cfg.vocab_size)
+    batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()}
+               for i in range(steps)]
+    step_ms = []
+    for i, batch in enumerate(batches[:-1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        if i:                                   # the first warms up
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    after_timing()
+    counter = FlopCounterMode(display=False)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with counter:
+        rec, (state, metrics) = record_ops(train_step, state, batches[-1],
+                                           detail=True)
+    torch.cuda.synchronize()
+    recorded_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    check(launches == want_launches, f"the recorded step launched "
+          f"{launches}, expected {want_launches}")
+    check(math.isfinite(metrics["loss"].item()), "the recorded step's loss "
+          "is not finite")
+    cost = analyze(rec, 1)
+    rf = roofline(cost.dot_flops, cost.hbm_bytes, 0.0, 1)
+    flop_counter = counter.get_total_flops()
+    median = statistics.median(step_ms)
+    print(f"  OLMo-1B train step, 4 x 1024 on one card: steps "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} ms (median {median:.1f}); "
+          f"the recorded step {recorded_s:.2f} s, {len(rec.calls):,} ops, "
+          f"launches {launches}")
+    print(f"  cost model: dot FLOPs {cost.dot_flops:.4e} (FlopCounterMode "
+          f"{flop_counter:.4e}, ratio {cost.dot_flops / flop_counter:.4f}); "
+          f"HBM bytes {cost.hbm_bytes:.4e}; kernels "
+          f"{json.dumps(cost.kernels)}")
+    print(f"  roofline: compute {rf['compute_s'] * 1e3:.2f} ms, memory "
+          f"{rf['memory_s'] * 1e3:.2f} ms, dominant {rf['dominant']}, bound "
+          f"{rf['bound_s'] * 1e3:.2f} ms against the median step "
+          f"{median:.1f} ms: the step at {rf['bound_s'] * 1e3 / median:.1%} "
+          f"of its bound")
+    check(cost.dot_flops > 0 and abs(cost.dot_flops / flop_counter - 1) < 0.2,
+          "the cost model's dot FLOPs stray from FlopCounterMode's count")
+    del state, metrics, rec, batches, data
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "recorded_s": recorded_s,
+                      "dot_flops": cost.dot_flops,
+                      "flop_counter": flop_counter,
+                      "hbm_bytes": cost.hbm_bytes,
+                      "bound_ms": rf["bound_s"] * 1e3,
+                      "dominant": rf["dominant"],
+                      "share_of_bound": rf["bound_s"] * 1e3 / median}
+
+
+def dryrun_phase(torch, counters):
+    """Phase 35: the step timed on the card first (no other process on the
+    host), then the dry runs started and, while they run, the step
+    recorded; then each dry run's figures.  Returns the recorded step's
+    launches and the phase's numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.analysis import model_flops
+    print("== 35. the dry run at full width and the cost model against "
+          "the card")
+    out_dir = ROOT / "build" / "dryrun"
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        launches, step = recorded_train_step(
+            torch, counters, lambda: procs.update(start_dryruns(out_dir)))
+        results = finish_dryruns(procs, out_dir)
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    numbers = {"train_step": step}
+    for tag, flags in DRYRUN_COMBOS:
+        r = results[tag]
+        arch = flags[flags.index("--arch") + 1]
+        cfg = get_arch(arch)
+        chips = 512 if ("--multi-pod" in flags or "--fedx" in flags) else 256
+        if "--fedx" in flags:
+            tokens, mode = 256 * 4096, "train"
+        else:
+            mode = r["mode"]
+            tokens = r["global_batch"] * (r["seq_len"] if mode != "decode"
+                                          else 1)
+        predicted = model_flops(cfg.num_active_params(), tokens,
+                                "train" if mode == "train" else "fwd") / chips
+        c, rf = r["collectives"], r["roofline"]
+        print(f"  {tag}: run {r['lower_s']} s in a process of "
+              f"{r['process_s']:.1f} s; FLOPs/device "
+              f"{r['cost']['flops_per_device']:.4e} (6·N·D or 2·N·D ÷ chips "
+              f"{predicted:.4e}), HBM bytes/device "
+              f"{r['cost']['hbm_bytes_per_device']:.4e}; collectives "
+              f"{json.dumps({k: f'{v:.4e}' for k, v in c['by_kind'].items()})}"
+              f", cross-pod {c['cross_pod_link_bytes']:.4e}; dominant "
+              f"{rf['dominant']}, bound {rf['bound_s'] * 1e3:.3f} ms")
+        check(r["cost"]["flops_per_device"] > 0, f"{tag}: no FLOPs")
+        numbers[tag] = {"run_s": r["lower_s"], "process_s": r["process_s"],
+                        "flops_per_device": r["cost"]["flops_per_device"],
+                        "model_flops_per_device": predicted,
+                        "hbm_bytes_per_device":
+                            r["cost"]["hbm_bytes_per_device"],
+                        "by_kind": c["by_kind"],
+                        "cross_pod_link_bytes": c["cross_pod_link_bytes"],
+                        "dominant": rf["dominant"],
+                        "bound_ms": rf["bound_s"] * 1e3}
+    ds = results["deepseek-v2-236b decode_32k pod16x16"]["collectives"]
+    check(ds["by_kind"].get("all-gather", 0) > 0, "DeepSeek-V2's decode "
+          "shows no all-gather of the expert buffer")
+    fedx = results["olmo-1b fedx round pod2x16x16"]["collectives"]
+    sync = results["olmo-1b train_4k pod2x16x16"]["collectives"]
+    print(f"  FedX round cross-pod {fedx['cross_pod_link_bytes']:.4e} B per "
+          f"chip against {DRYRUN_LOCAL_STEPS} synchronous steps' "
+          f"{sync['cross_pod_link_bytes'] * DRYRUN_LOCAL_STEPS:.4e} "
+          f"({sync['cross_pod_link_bytes']:.4e} a step)")
+    check(0 < fedx["cross_pod_link_bytes"]
+          < sync["cross_pod_link_bytes"] * DRYRUN_LOCAL_STEPS,
+          "the FedX round does not send fewer bytes across pods than "
+          "the synchronous steps")
+    numbers["seconds"] = time.perf_counter() - t0
+    return launches, numbers
+
+
 def audit_counts(report):
     """The findings of ``report`` by (rule, severity)."""
     out = {}
@@ -3677,6 +3905,11 @@ def main() -> int:
     audit = run_numbered({"34": lambda: audit_phase(torch, smi)}, smi,
                          t_start, None)["34"]
 
+    # ------------------------------ 35. the dry run and the cost model --
+    dry_launches, dry = run_numbered(
+        {"35": lambda: dryrun_phase(torch, counters)}, smi, t_start,
+        None)["35"]
+
     # --------------------------------------------------------- results --
     def no_routes(numbers):
         return {k: v for k, v in numbers.items() if "routes" not in k}
@@ -3694,7 +3927,8 @@ def main() -> int:
                                 "llava-next train step, 8 layers":
                                     no_routes(llava_step),
                                 "fedbwo mesh, 10 ranks": mesh,
-                                "flcheck, fedbwo at full width": audit}}))
+                                "flcheck, fedbwo at full width": audit,
+                                "dry run and cost model": dry}}))
     kernels = [{
         "name": "bwo_evolve", "route": "cuda",
         "source": "src/repro_torch/csrc/bwo_evolve.cu",
@@ -3719,7 +3953,8 @@ def main() -> int:
                      + int8["int8"]["launches"]["flash_attention"]
                      + olmo_srv_launches["flash_attention"]
                      + jamba_srv_launches["flash_attention"]
-                     + llava_train["flash_attention"]),
+                     + llava_train["flash_attention"]
+                     + dry_launches["flash_attention"]),
         "route_launches": {"olmo-1b": olmo_routes,
                            "jamba without experts": jamba_routes,
                            "jamba with experts": moe_routes,
@@ -3757,7 +3992,8 @@ def main() -> int:
         "launches": (olmo_train["flash_attention_bwd"]
                      + jamba_train["flash_attention_bwd"]
                      + whisper_train["flash_attention_bwd"]
-                     + llava_train["flash_attention_bwd"]),
+                     + llava_train["flash_attention_bwd"]
+                     + dry_launches["flash_attention_bwd"]),
         "route_launches": {
             "olmo-1b train step": fa_bwd["train_step"]["bwd_routes"],
             "jamba train step": ssm_bwd["train_step"]["bwd_routes"],

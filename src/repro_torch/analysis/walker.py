@@ -17,6 +17,17 @@ many callers: the round engine's conv-on-CPU auto policy
 * ``in_loop`` -- whether it fired in more than one round of the fused loop
   (the ``for`` over rounds in ``make_fused_rounds``'s block function, the
   counterpart of the reference's round ``lax.scan``).
+
+With ``detail=True`` the recorder also keeps each dispatch as an
+:class:`OpCall` (its operands' and results' shapes and dtypes, its scalar
+arguments, a collective's group), which the cost model
+(``repro_torch.launch.graph_analysis.analyze``) reads.  A ``DTensor`` op is
+left to ``DTensor`` (the mode returns ``NotImplemented``, as
+``CommDebugMode`` does), so the recorder sees each rank's local ops and the
+collectives that ``DTensor`` issues, at their local shapes; the ops
+``DTensor`` runs at the global shape to propagate its sharding are not
+recorded, and the all-gather and chunk with which a CPU process group
+stands in for an all-to-all are recorded as the all-to-all asked for.
 """
 from __future__ import annotations
 
@@ -65,12 +76,29 @@ class OpSite:
         return self.op in HOST_READ_OPS or self.host_copy
 
 
+Sig = Tuple[Tuple[int, ...], str]          # a tensor's (shape, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class OpCall:
+    """One dispatch, as the cost model reads it."""
+    op: str                       # overload packet, e.g. "aten.mm"
+    inputs: Tuple[Sig, ...]       # its tensor arguments, in order
+    outputs: Tuple[Sig, ...]
+    attrs: Tuple[Any, ...]        # its scalar arguments (int, float, bool,
+                                  # str, None), in order
+    group: Tuple[int, ...]        # a collective's ranks, () for other ops
+    location: str
+
+
 @dataclasses.dataclass
 class OpRecording:
     """The ops of one recorded call: one event per dispatch, as
-    ``(site without counts, round index or None)``."""
+    ``(site without counts, round index or None)``; with ``detail`` each
+    dispatch also as an :class:`OpCall`."""
     events: List[Tuple[OpSite, Optional[int]]] = dataclasses.field(
         default_factory=list)
+    calls: List[OpCall] = dataclasses.field(default_factory=list)
 
 
 def tensors(obj) -> Iterator[torch.Tensor]:
@@ -107,22 +135,93 @@ def _where(frame) -> Tuple[str, Optional[int]]:
     return site or fallback, round_idx
 
 
-class OpRecorder(TorchDispatchMode):
-    """Records every op dispatched under it into ``self.recording``."""
+# DTensor's own frames: its sharding propagation runs each op once at the
+# global shape, and a CPU process group's stand-in for an all-to-all
+_DTENSOR_META = "_propagate_tensor_meta_non_cached"
+_ALLTOALL_FALLBACK = "shard_dim_alltoall"
+_COLLECTIVE_PREFIX = ("_c10d_functional.", "_dtensor.", "c10d.")
 
-    def __init__(self):
+
+def _dtensor_frame(frame) -> Optional[str]:
+    """The DTensor frame the dispatch runs under (see above), if any."""
+    while frame is not None:
+        name = frame.f_code.co_name
+        if name in (_DTENSOR_META, _ALLTOALL_FALLBACK):
+            return name
+        frame = frame.f_back
+    return None
+
+
+def _sig(t: torch.Tensor) -> Sig:
+    return tuple(t.shape), str(t.dtype).replace("torch.", "")
+
+
+def _scalars(obj) -> Iterator[Any]:
+    if isinstance(obj, (bool, int, float, str)) or obj is None:
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _scalars(o)
+
+
+def _group_ranks(attrs) -> Tuple[int, ...]:
+    """The ranks of the process group a collective names (its last string
+    argument, the group's name)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in attrs if isinstance(a, str)]
+    if not name:
+        return ()
+    return tuple(dist.get_process_group_ranks(
+        _resolve_process_group(name[-1])))
+
+
+def _has_dtensor(types) -> bool:
+    if all(t is torch.Tensor for t in types):    # plain tensors: no import
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+class OpRecorder(TorchDispatchMode):
+    """Records every op dispatched under it into ``self.recording`` (and,
+    with ``detail``, each dispatch as an :class:`OpCall`)."""
+
+    def __init__(self, detail: bool = False):
         super().__init__()
         self.recording = OpRecording()
+        self.detail = detail
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        frame = sys._getframe(1)
+        inside = _dtensor_frame(frame)
+        op = str(func.overloadpacket)
+        if inside == _DTENSOR_META or (
+                inside == _ALLTOALL_FALLBACK
+                and "all_gather" not in op):
+            return out
         outs = list(tensors(out))
         dev = outs[0].device.type if outs else ""
         ins = list(tensors(args)) + list(tensors(kwargs))
-        where, round_idx = _where(sys._getframe(1))
+        where, round_idx = _where(frame)
+        if inside == _ALLTOALL_FALLBACK:
+            # the all-to-all asked for: each rank sends and receives its
+            # input's bytes
+            op, outs = "_c10d_functional.all_to_all_single", ins[:1]
+        if self.detail:
+            attrs = tuple(_scalars(list(args) + list(kwargs.values())))
+            self.recording.calls.append(OpCall(
+                op=op, inputs=tuple(_sig(t) for t in ins),
+                outputs=tuple(_sig(t) for t in outs), attrs=attrs,
+                group=(_group_ranks(attrs)
+                       if op.startswith(_COLLECTIVE_PREFIX) else ()),
+                location=where))
         self.recording.events.append((OpSite(
-            op=str(func.overloadpacket),
+            op=op,
             dtypes=tuple(str(t.dtype).replace("torch.", "") for t in outs),
             shapes=tuple(tuple(t.shape) for t in outs), device=dev,
             location=where,
@@ -131,10 +230,12 @@ class OpRecorder(TorchDispatchMode):
         return out
 
 
-def record_ops(fn, *args, **kwargs) -> Tuple[OpRecording, Any]:
-    """Run ``fn(*args, **kwargs)`` once under an :class:`OpRecorder`;
-    returns ``(recording, result)``."""
-    with OpRecorder() as rec:
+def record_ops(fn, *args, detail: bool = False,
+               **kwargs) -> Tuple[OpRecording, Any]:
+    """Run ``fn(*args, **kwargs)`` once under an :class:`OpRecorder`
+    (keeping each dispatch's :class:`OpCall` with ``detail``); returns
+    ``(recording, result)``."""
+    with OpRecorder(detail) as rec:
         result = fn(*args, **kwargs)
     return rec.recording, result
 

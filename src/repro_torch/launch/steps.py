@@ -4,6 +4,7 @@
 ``make_prefill_step`` — full-context forward producing logits + KV cache
 ``make_serve_step``   — ONE new token against a seq_len KV cache (decode)
 ``make_serve_step_encdec`` — the same, with the encoder's output passed in
+``input_specs``       — stand-ins for every model input (meta tensors)
 
 The train step's gradients come from autograd: on the card through the
 flash-attention and scan kernels' backward kernels, on the CPU through the
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch import optim as opt_lib
 from repro_torch import tree
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models.transformer import Model
 
 
@@ -117,15 +119,19 @@ def make_train_step(model: Model, optimizer: Optional[opt_lib.Optimizer] = None,
     return train_step, init_state
 
 
-def make_prefill_step(model: Model, max_len: int):
+def make_prefill_step(model: Model, max_len: int, cache_init=None):
     """Prefill: a new cache of ``max_len`` positions, then the whole batch
     (tokens, and ``image_embeds`` / ``encoder_embeds`` as they are) ->
     the last position's logits and the filled cache.  With a vision prefix
-    ``max_len`` counts its positions too."""
+    ``max_len`` counts its positions too.  ``cache_init(batch, max_len,
+    device)`` makes the new cache (``model.cache_init`` by default; the dry
+    run passes one that builds it sharded)."""
+    cache_init = cache_init or (lambda b, n, device: model.cache_init(
+        b, n, device=device))
+
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        cache = model.cache_init(tokens.shape[0], max_len,
-                                 device=tokens.device)
+        cache = cache_init(tokens.shape[0], max_len, tokens.device)
         logits, cache, _ = model.apply(params, batch, mode="prefill",
                                        cache=cache)
         return logits[:, -1], cache
@@ -155,3 +161,31 @@ def make_serve_step_encdec(model: Model, window: Optional[int] = None):
                                        window=window)
         return logits[:, 0], cache
     return serve_step
+
+
+# ------------------------------------------------------------- specs ----
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input, on the meta device (shapes and
+    dtypes, no storage): the reference's ``ShapeDtypeStruct``s, by name."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sd(shape_, dt):
+        return torch.empty(shape_, dtype=dt, device="meta")
+
+    specs: Dict[str, Any] = {}
+    if shape.mode in ("train", "prefill"):
+        specs["tokens"] = sd((B, S), torch.int32)
+        if shape.mode == "train":
+            specs["labels"] = sd((B, S), torch.int32)
+        if cfg.vision_tokens:
+            specs["image_embeds"] = sd((B, cfg.vision_tokens, cfg.d_model),
+                                       dtype)
+        if cfg.encoder_layers:
+            specs["encoder_embeds"] = sd((B, cfg.encoder_seq, cfg.d_model),
+                                         dtype)
+    else:  # decode
+        # enc-dec archs need no encoder inputs at decode time: cross K/V
+        # are prefilled into the cache (see attention.gqa_apply)
+        specs["tokens"] = sd((B, 1), torch.int32)
+    return specs

@@ -26,7 +26,9 @@ import torch
 from repro_torch import random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ops import HEADS
 from repro_torch.models import modules as nn
+from repro_torch.sharding.context import is_dtensor, local_dims
 
 NEG_INF = -1e30
 QUANT_MAX = 127.0                 # int8 cache: symmetric, [-127, 127]
@@ -44,7 +46,15 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
     ``q_offset``: absolute position of q[0] (decode / chunked prefill).
     ``window``: sliding-window size (None = full).
     ``kv_len``: optional valid length of k/v, an int or a (B,) tensor.
+    ``DTensor``s run shard by shard: the batch and the heads.
     """
+    if is_dtensor(q):
+        rows = kv_len if isinstance(kv_len, torch.Tensor) else None
+        return local_dims(
+            lambda q, k, v, n: blockwise_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len if n is None else n, q_block=q_block),
+            (q, HEADS), (k, HEADS), (v, HEADS), (rows, "b"), out=HEADS)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -86,8 +96,9 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
 def _attend(q, k, v, *, causal: bool, window: Optional[int],
             kv_len: Length = None, q_block: int):
     """The kernel for CUDA tensors, the plain blockwise version for CPU
-    tensors."""
-    if q.device.type == "cuda":
+    tensors.  A ``DTensor`` (the dry run's mesh, which stands for the
+    card's) takes the kernel's operator on every device."""
+    if q.device.type == "cuda" or is_dtensor(q):
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       kv_len=kv_len)
     return blockwise_attention(q, k, v, causal=causal, window=window,
@@ -180,14 +191,17 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    q = nn.dense_apply(p["wq"], x).reshape(B, S, H, hd)
+    q = nn.dense_apply(nn.tp_weight(p["wq"], None, "model"),
+                       x).reshape(B, S, H, hd)
     cross = cross or kv_source is not None
     cached_cross = (cross and mode == "decode" and cache is not None
                     and "ck" in cache)
     if not cached_cross:           # cross K/V are never recomputed at decode
         src = x if kv_source is None else kv_source
-        k = nn.dense_apply(p["wk"], src).reshape(B, src.shape[1], KV, hd)
-        v = nn.dense_apply(p["wv"], src).reshape(B, src.shape[1], KV, hd)
+        k = nn.dense_apply(nn.tp_weight(p["wk"], None, "model"),
+                           src).reshape(B, src.shape[1], KV, hd)
+        v = nn.dense_apply(nn.tp_weight(p["wv"], None, "model"),
+                           src).reshape(B, src.shape[1], KV, hd)
     if cfg.pos_emb == "rope" and not cross:
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
@@ -247,7 +261,8 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
             else:
                 cache["k"][:, :S] = k.to(cache["k"].dtype)
                 cache["v"][:, :S] = v.to(cache["v"].dtype)
-    y = nn.dense_apply(p["wo"], out.reshape(B, S, H * hd))
+    y = nn.dense_apply(nn.tp_weight(p["wo"], "model", None),
+                       out.reshape(B, S, H * hd))
     return y, cache
 
 

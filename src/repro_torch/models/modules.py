@@ -2,8 +2,8 @@
 ``*_apply(params, x) -> y`` on plain tensors, in the reference's layouts
 (dense ``w`` (in, out); conv weights HWIO; activations NHWC; attention
 activations (B, S, H, hd)).  The pieces the paper CNN and the dense
-transformer use are ported.  The reference's ``tp_weight`` (a sharding
-constraint, an identity without a mesh) is not."""
+transformer use are ported, with the reference's ``tp_weight`` (a
+sharding constraint, an identity without a mesh context)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random
+from repro_torch.sharding.context import constrain, is_dtensor, local_dims
 
 
 def _normal(key, shape, scale, dtype):
@@ -72,7 +73,16 @@ def embedding_init(key, vocab: int, dim: int, dtype=torch.bfloat16):
 
 
 def embedding_apply(p, ids):
-    return p["table"][ids]
+    table = p["table"]
+    if is_dtensor(table):
+        # on a mesh each rank looks its own rows up in the table gathered
+        # over the vocabulary (its model columns); its gradient covers
+        # those rows alone
+        rows = ("b" if is_dtensor(ids) else ".") + "." * (ids.dim() - 1)
+        return local_dims(lambda t, i: t[i],
+                          (table, ".m+b" if "b" in rows else ".m"),
+                          (ids, rows), out=rows + "m")
+    return table[ids]
 
 
 def embedding_attend(p, x):
@@ -112,12 +122,29 @@ def ffn_init(key, kind: str, d_model: int, d_ff: int, dtype=torch.bfloat16):
     raise ValueError(kind)
 
 
+def tp_weight(p, *axes):
+    """FSDP -> TP reshard of a weight before use.
+
+    Storage sharding is ZeRO-3 (both dims sharded); computing directly
+    from that gathers *activations* (B, S, d_ff) instead of weights.
+    Constraining the weight to its Megatron layout (contracting dim
+    replicated, output dim on ``model``) makes it a per-layer weight
+    all-gather over ``data`` -- the FSDP schedule.  Without a mesh context
+    ``p`` comes back as it is."""
+    w = constrain(p["w"], *axes)
+    if w is p["w"]:
+        return p
+    return dict(p, w=w)
+
+
 def ffn_apply(kind: str, p, x):
     if kind == "swiglu":
-        h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
+        h = (F.silu(dense_apply(tp_weight(p["wg"], None, "model"), x))
+             * dense_apply(tp_weight(p["wi"], None, "model"), x))
     else:                               # jax.nn.gelu's tanh approximation
-        h = F.gelu(dense_apply(p["wi"], x), approximate="tanh")
-    return dense_apply(p["wo"], h)
+        h = F.gelu(dense_apply(tp_weight(p["wi"], None, "model"), x),
+                   approximate="tanh")
+    return dense_apply(tp_weight(p["wo"], "model", None), h)
 
 
 # ------------------------------------------------------------ conv (cnn) --

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer with capacity-based dispatch: the port of
-``repro/models/moe.py`` without its mesh branch.
+``repro/models/moe.py``.
 
 Routing is the reference's: float32 router logits, softmax, top-k, the
 gates renormalised, a Switch load-balance loss; each (token, slot) pair
@@ -11,10 +11,20 @@ back and summed under the gates.  DeepSeek-V2's shared experts and Arctic's
 parallel dense FFN are added on top.  With S = 1 (decode) each expert
 multiplies C = 8 slots, most of them empty: the reference's dense dispatch,
 kept as it is.
+
+On a mesh (``DTensor`` activations, as the dry run runs them) the dispatch
+is expert-parallel, as the reference's ``shard_map`` branch: each rank
+scatters its batch rows' pairs into the experts it holds (E / model of
+them, where ``model`` divides E), so the (B, E, C, d) buffer is born
+sharded over ``model``; the experts' products run on that shard, and the
+combine gathers the buffer over ``model`` (the reference's default
+all-gather combine) before each rank reads its rows' pairs back.  Both
+run through ``local_map`` (:func:`repro_torch.sharding.context.local_dims`).
+Without a mesh, ``moe_apply`` is the single-device code.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +32,8 @@ import torch.nn.functional as F
 from repro_torch import random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import modules as nn
+from repro_torch.sharding.context import (axes, batch_axes, constrain,
+                                          is_dtensor, local_dims)
 
 
 def moe_init(key, cfg: ArchConfig):
@@ -88,6 +100,59 @@ def route(p, x, cfg: ArchConfig, *,
     return Routing(gate, eidx, pos, pos < C, C, aux)
 
 
+def _rows(e, pos_c, E: int, C: int):
+    """The flat row of a (B, E, C) buffer for each (row, pair)."""
+    B = e.shape[0]
+    return ((torch.arange(B, device=e.device)[:, None] * E + e) * C
+            + pos_c).reshape(-1)
+
+
+def _scatter(contrib, e_flat, pos_c, *, E: int, C: int,
+             lo: Optional[int] = None):
+    """(B, SK, d) contributions -> the (B, E, C, d) dispatch buffer.  A
+    dropped pair adds zeros at C - 1, so each row holds at most one kept
+    pair and the sum is exact in the contributions' dtype.  With ``lo``,
+    the buffer of experts lo .. lo + E - 1 alone: a pair of another expert
+    adds zeros."""
+    B, _, d = contrib.shape
+    if lo is not None:
+        local = (e_flat >= lo) & (e_flat < lo + E)
+        contrib = contrib * local[..., None].to(contrib.dtype)
+        e_flat = (e_flat - lo).clamp(0, E - 1)
+    return contrib.new_zeros((B * E * C, d)).index_add_(
+        0, _rows(e_flat, pos_c, E, C), contrib.reshape(-1, d)).reshape(
+            B, E, C, d)
+
+
+def _gather(yb, e_flat, pos_c):
+    """Each pair's row of the (B, E, C, d) buffer: (B, SK, d)."""
+    B, E, C, d = yb.shape
+    return yb.reshape(B * E * C, d)[_rows(e_flat, pos_c, E, C)].reshape(
+        B, -1, d)
+
+
+def _dispatch_ep(contrib, e_flat, pos_c, *, E: int, C: int):
+    """The expert-parallel scatter on a mesh: each rank's batch rows into
+    its own experts, the buffer sharded over ``model`` where it divides E
+    (else each rank builds the whole buffer of its rows)."""
+    mesh = contrib.device_mesh
+    m = axes(mesh)
+    n_model = m.size("model") if "model" in m.names else 1
+    if n_model > 1 and E % n_model == 0:
+        E_loc = E // n_model
+
+        def scatter(c, e, pos):
+            lo = mesh.get_local_rank("model") * E_loc
+            return _scatter(c, e, pos, E=E_loc, C=C, lo=lo)
+        # each rank's scatter reads only the pairs of its experts: the
+        # contributions' gradient is a sum over the model ranks
+        return local_dims(scatter, (contrib, "b..+m"), (e_flat, "b."),
+                          (pos_c, "b."), out="bm..")
+    return local_dims(lambda c, e, pos: _scatter(c, e, pos, E=E, C=C),
+                      (contrib, "b.."), (e_flat, "b."), (pos_c, "b."),
+                      out="b...")
+
+
 def moe_apply(p, x, cfg: ArchConfig, *, capacity_factor: float = 1.25):
     """x: (B, S, d) -> (y, aux_loss)."""
     m = cfg.moe
@@ -97,25 +162,31 @@ def moe_apply(p, x, cfg: ArchConfig, *, capacity_factor: float = 1.25):
     C = rt.capacity
     e_flat = rt.eidx.reshape(B, S * K)
     pos_c = rt.pos.clamp(max=C - 1)
-    # one flat row of the (B, E, C) buffer for each pair; a dropped pair
-    # adds zeros at C - 1, so each row holds at most one kept pair and the
-    # sum is exact in x's dtype
-    rows = ((torch.arange(B, device=x.device)[:, None] * E + e_flat) * C
-            + pos_c).reshape(-1)
-    contrib = (x.repeat_interleave(K, dim=1)
-               * rt.keep[..., None].to(x.dtype))                  # (B,SK,d)
-    xb = x.new_zeros((B * E * C, d)).index_add_(0, rows,
-                                                contrib.reshape(-1, d))
-    xb = xb.reshape(B, E, C, d)
+    keep = rt.keep[..., None]
+    contrib = x.repeat_interleave(K, dim=1) * keep.to(x.dtype)   # (B,SK,d)
+    sharded = is_dtensor(x)
+    if sharded:
+        xb = constrain(_dispatch_ep(contrib, e_flat, pos_c, E=E, C=C),
+                       batch_axes(), "model", None, None)
+        wg, wi, wo = (constrain(p[n], "model", None, None)
+                      for n in ("wg", "wi", "wo"))
+    else:
+        xb = _scatter(contrib, e_flat, pos_c, E=E, C=C)
+        wg, wi, wo = p["wg"], p["wi"], p["wo"]
 
     # the experts' swiglu FFN
-    h = (F.silu(torch.einsum("becd,edf->becf", xb, p["wg"]))
-         * torch.einsum("becd,edf->becf", xb, p["wi"]))
-    yb = torch.einsum("becf,efd->becd", h, p["wo"])
+    h = (F.silu(torch.einsum("becd,edf->becf", xb, wg))
+         * torch.einsum("becd,edf->becf", xb, wi))
+    yb = torch.einsum("becf,efd->becd", h, wo)
 
     # gather back and combine the top-k
-    y_slot = (yb.reshape(B * E * C, d)[rows].reshape(B, S * K, d)
-              * rt.keep[..., None].to(yb.dtype))
+    if sharded:
+        yb = constrain(yb, batch_axes(), None, None, None)
+        y_slot = local_dims(_gather, (yb, "b..."), (e_flat, "b."),
+                            (pos_c, "b."), out="b..")
+    else:
+        y_slot = _gather(yb, e_flat, pos_c)
+    y_slot = y_slot * keep.to(yb.dtype)
     y = (y_slot.reshape(B, S, K, d)
          * rt.gate.to(yb.dtype)[..., None]).sum(2)                # (B,S,d)
 

@@ -22,6 +22,7 @@ from repro_torch import random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import modules as nn
+from repro_torch.sharding.context import is_dtensor, local_dims
 
 
 def _dims(cfg: ArchConfig):
@@ -66,6 +67,11 @@ def _causal_conv(x, w, b, conv_state=None):
     ascending order, as the reference's Python ``sum``, so bf16 sums round
     as its do."""
     cw = w.shape[0]
+    if conv_state is None and is_dtensor(x):
+        # on a mesh the taps run on each rank's rows and channels; the
+        # weights' gradients are sums over the ranks' rows
+        return local_dims(_causal_conv, (x, "b.m"), (w, ".m+b"), (b, "m+b"),
+                          out="b.m")
     if conv_state is None:
         xp = F.pad(x, (0, 0, cw - 1, 0))
     else:
@@ -89,8 +95,16 @@ def mamba_apply(p, x, *, cfg: ArchConfig, mode: str, state=None):
     the new state into ``state`` in place and return it."""
     S = x.shape[1]
     cw = cfg.ssm.conv_width
-    xz = nn.dense_apply(p["in_proj"], x)
-    x_in, z = xz.chunk(2, dim=-1)
+    if is_dtensor(x):
+        # on a mesh the halves are two column-parallel products: chunking
+        # one product's model-sharded columns would gather them whole
+        w = p["in_proj"]["w"]
+        di = w.shape[1] // 2
+        x_in, z = (nn.dense_apply(nn.tp_weight({"w": h}, None, "model"), x)
+                   for h in (w[:, :di], w[:, di:]))
+    else:
+        xz = nn.dense_apply(p["in_proj"], x)
+        x_in, z = xz.chunk(2, dim=-1)
 
     if mode == "decode":
         # one step of the recurrence on the cached (h, conv) state

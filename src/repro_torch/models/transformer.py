@@ -26,6 +26,7 @@ from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.sharding import batch_axes, constrain
 
 
 class _Mixer(NamedTuple):
@@ -153,29 +154,38 @@ def _apply_sublayer(p, x, *, cfg: ArchConfig, sub_idx: int, mode: str,
                     positions, cache_entry, cache_pos, window, enc_out):
     """Returns (x, the layer's cache entry, the layer's MoE aux loss or
     None).  A layer with cross-attention keeps its cache as {"self",
-    "cross"}."""
+    "cross"}.
+
+    On a mesh each block's output is constrained to the batch layout before
+    it joins the residual, as the reference constrains the FFN's: a
+    ``DTensor`` keeps a row-parallel product's sum pending (``Partial``)
+    until an op needs it, where XLA reduces it at once, and the norm and
+    the next block would run on the pending sum (each rank gathering the
+    next weights whole).  Without a mesh these are identities."""
     nested = "cross" in p and cache_entry is not None
     h = nn.norm_apply(cfg.norm, p["norm1"], x)
     y, _ = _mixer(cfg, sub_idx).apply(
         p["mixer"], h, cfg=cfg, mode=mode, positions=positions,
         cache=cache_entry["self"] if nested else cache_entry,
         cache_pos=cache_pos, window=window)
-    x = x + y
+    x = x + constrain(y, batch_axes(), None, None)
     if "cross" in p:
         h = nn.norm_apply(cfg.norm, p["norm_x"], x)
         y, _ = attn.gqa_apply(p["cross"], h, cfg=cfg, mode=mode,
                               positions=positions, kv_source=enc_out,
                               cache=cache_entry["cross"] if nested else None,
                               cross=True)
-        x = x + y
+        x = x + constrain(y, batch_axes(), None, None)
     aux = None
     if "moe" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
         y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
-        x = x + y
+        x = x + constrain(y, batch_axes(), None, None)
     elif "ffn" in p:
         h = nn.norm_apply(cfg.norm, p["norm2"], x)
-        x = x + nn.ffn_apply(cfg.ffn, p["ffn"], h)
+        y = constrain(nn.ffn_apply(cfg.ffn, p["ffn"], h),
+                      batch_axes(), None, None)
+        x = x + y
     return x, cache_entry, aux
 
 
@@ -298,7 +308,7 @@ class Model:
             positions = torch.arange(x.shape[1], device=dev)[None]
         if cfg.pos_emb == "learned":
             x = x + nn.embedding_apply(params["pos_embed"], positions.long())
-        x = x.to(cfg.param_dtype)
+        x = constrain(x.to(cfg.param_dtype), batch_axes(), None, None)
 
         enc_out = None
         if cfg.encoder_layers:
@@ -312,6 +322,7 @@ class Model:
                     positions=positions,
                     cache_entry=None if gcache is None else gcache[f"sub{i}"],
                     cache_pos=cache_pos, window=window, enc_out=enc_out)
+                x = constrain(x, batch_axes(), None, None)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -336,8 +347,10 @@ class Model:
         if cfg.tie_embeddings:
             logits = nn.embedding_attend(params["embed"], x)
         else:
-            logits = nn.dense_apply(params["lm_head"], x)
-        return logits[:, n_prefix:].float(), cache, aux
+            logits = nn.dense_apply(
+                nn.tp_weight(params["lm_head"], None, "model"), x)
+        logits = constrain(logits[:, n_prefix:], batch_axes(), None, "model")
+        return logits.float(), cache, aux
 
 
 def build_model(cfg: ArchConfig, max_seq: int = 4096) -> Model:

@@ -20,6 +20,8 @@ import contextlib
 import threading
 from typing import Optional, Sequence, Union
 
+import torch
+
 _state = threading.local()
 
 
@@ -119,6 +121,24 @@ def placements(mesh, spec) -> tuple:
     return tuple(out)
 
 
+class _Constrain(torch.autograd.Function):
+    """Redistribute a ``DTensor`` to ``place``, and its gradient too:
+    ``with_sharding_constraint``'s transpose constrains the cotangent
+    alike.  (``DTensor.redistribute`` alone sends a gradient back to the
+    placements it came from, and a row-parallel product's pending sum would
+    then reach the next product's weight gradient, which gathers its other
+    operand whole.)"""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.place = place
+        return x.redistribute(x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.place), None
+
+
 def constrain(x, *axes_):
     """Apply a sharding constraint if a mesh context is active.
 
@@ -126,8 +146,8 @@ def constrain(x, *axes_):
     Names absent from the active mesh — or that don't divide the dim —
     are silently dropped, so the same model code serves every mesh.  A
     ``DTensor`` is redistributed to the filtered spec's placements on its
-    own mesh; a plain tensor comes back unchanged, since eager PyTorch
-    has no compiler to hand the constraint to.
+    own mesh, and so is its gradient; a plain tensor comes back unchanged,
+    since eager PyTorch has no compiler to hand the constraint to.
     """
     mesh = current_mesh()
     if mesh is None:
@@ -136,8 +156,62 @@ def constrain(x, *axes_):
     spec = tuple(_filter(a, mesh, s) for a, s in zip(axes_, x.shape))
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
-        return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+        return _Constrain.apply(x, placements(x.device_mesh, spec))
     return x
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_dims(fn, *args, out):
+    """Run ``fn`` on each rank's shard of its ``DTensor`` arguments, through
+    ``local_map``: the sharding rule of an operator that works on one shard
+    as it works on the whole (a kernel, a scatter).  ``args`` are pairs
+    ``(tensor or None, roles)`` with one character per dim: ``b`` a batch
+    dim, sharded over the batch axes (:func:`batch_axes`) where they divide
+    every batch dim; ``m`` a model dim, sharded over ``model`` where it
+    divides every model dim; ``.`` replicated.  ``out`` is the roles of the
+    result, or a tuple of them for a tuple of results.  Roles may end in
+    ``+`` and the roles whose axes hold partial sums: of a result (``+b``:
+    a replicated weight's gradient summed over each rank's batch rows), or
+    of an input's gradient (``fn``'s backward on each rank covers only its
+    share).  Inputs are redistributed to these placements first."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t for t, _ in args if is_dtensor(t)).device_mesh
+    m = axes(mesh)
+
+    def sizes(role):
+        return [t.shape[d] for t, roles in args if t is not None
+                for d, r in enumerate(roles.partition("+")[0]) if r == role]
+
+    batch = tuple(a for a in batch_axes() if a in m.names)
+    if not batch or any(s % _axis_size(batch, mesh) for s in sizes("b")):
+        batch = None
+    model = ("model" if "model" in m.names
+             and all(s % m.size("model") == 0 for s in sizes("m")) else None)
+
+    def place(roles):
+        from torch.distributed.tensor import Partial
+        roles, _, partial = roles.partition("+")
+        out = list(placements(mesh, [
+            batch if r == "b" else model if r == "m" else None
+            for r in roles]))
+        summed = (batch or ()) if "b" in partial else ()
+        summed += (model,) if "m" in partial and model else ()
+        for a in summed:
+            out[m.names.index(a)] = Partial()
+        return out              # a list: local_map reads a tuple as outputs
+
+    outs = (tuple(place(r) for r in out) if isinstance(out, tuple)
+            else place(out))
+    ins = tuple(place(roles.partition("+")[0]) if is_dtensor(t) else None
+                for t, roles in args)
+    grads = tuple(place(roles) if is_dtensor(t) else None
+                  for t, roles in args)
+    return local_map(fn, outs, ins, grads, mesh, redistribute_inputs=True)(
+        *[t for t, _ in args])
 
 
 def batch_axes():

@@ -39,6 +39,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert PORT / "sharding" / "rules.py" in files
     assert PORT / "analysis" / "audit.py" in files
     assert PORT / "launch" / "graph_analysis.py" in files
+    assert PORT / "launch" / "dryrun.py" in files
+    assert PORT / "launch" / "analysis.py" in files
+    for name in ("quickstart", "fl_cifar_comparison", "serve_llm",
+                 "continuous_batching"):
+        assert ROOT / "examples" / f"{name}_torch.py" in files
     bad = [(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []

@@ -26,6 +26,7 @@ def _run(argv, cwd):
     ["tools/run_phase.py", "19"], ["tools/run_phase.py", "20"],
     ["tools/run_phase.py", "17"], ["tools/run_phase.py", "18"],
     ["tools/run_phase.py", "22"], ["tools/run_phase.py", "24,25"],
+    ["tools/run_phase.py", "35"],
     ["tools/ssm_scan_bwd_ablation.py"],
     ["tools/flash_attention_bwd_ablation.py"],
     ["tools/flash_bwd_accuracy.py"], ["tools/flash_bwd_accuracy.py", "model"],

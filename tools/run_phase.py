@@ -16,6 +16,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 28 [TREE]      # a phase of 28-32 (or several)
     python3 tools/run_phase.py 33 [TREE]      # the mesh schedules, 10 ranks
     python3 tools/run_phase.py 34 [TREE]      # flcheck on the card
+    python3 tools/run_phase.py 35 [TREE]      # the dry run, the cost model
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -54,7 +55,9 @@ mesh schedules: 3 FedBWO rounds on 10 gloo ranks sharing the card, held
 to the sequential and batched engines, and one FedAvg round.  ``34``
 runs flcheck on the card: the strict audit of the FL main path at full
 width (its block's CUDA graph read), its rounds against an unaudited
-build's, FedAvg's audit and two planted faults.
+build's, FedAvg's audit and two planted faults.  ``35`` runs the dry
+run at full width (four host-only subprocesses) and the cost model of
+OLMo-1B's train step recorded on the card.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def main() -> int:
                                              "27"}
     new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
     if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
-                     "20", "33", "34") and not slice_phases \
+                     "20", "33", "34", "35") and not slice_phases \
             and not new_paths:
         print(__doc__, file=sys.stderr)
         return 2
@@ -136,6 +139,13 @@ def main() -> int:
             check=True, timeout=60).stdout.strip()
         print(smi)
         times = cs.audit_phase(torch, smi)
+    elif phase == "35":
+        from repro_torch.kernels.bwo_evolve import bwo_evolve
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_bwd)
+        from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+        times = cs.dryrun_phase(torch, (bwo_evolve, flash_attention, ssm_scan,
+                                        flash_attention_bwd, ssm_scan_bwd))[1]
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
