@@ -150,16 +150,20 @@ Phases, each printing its own lines; any failure exits non-zero:
     launches at the timed shapes equal bit for bit;
 24. serving Whisper-medium at full width and depth (``serve(get_arch(
     "whisper-medium"), batch=4, prompt_len=32, gen=32)``, 1500 zero encoder
-    frames): 72 tensor-core flash calls at prefill (24 encoder layers, 24
-    decoder self- and 24 cross-attentions), 1,488 split-K (31 steps x 48),
-    none on the CUDA cores; the tree counted on the meta device; then
-    Whisper-medium reduced served on the card against the CPU route;
+    frames): the encoder in float32, as the reference's promotion runs it;
+    at prefill 24 tensor-core flash calls (the decoder's self-attentions)
+    and 48 on the CUDA cores (24 float32 encoder layers, 24
+    cross-attentions over its float32 K/V), 1,488 split-K (31 steps x 48);
+    the tree counted on the meta device; the card's float32 encoder against
+    the CPU route's (RMS within 2^-14); then Whisper-medium reduced served
+    on the card against the CPU route;
 25. training Whisper-medium at full width and depth on 4 x 448 tokens and
     1500 encoder frames drawn from the seed, as phases 19-20 (120 flash
-    forwards and 72 backwards a step, all on the tensor cores; the key
-    biases, whose gradient is 0 in exact arithmetic, held to the tree's
-    largest gradient entry); 25b. reduced Whisper-medium and LLaVA-NeXT
-    train steps on the card against the CPU route;
+    forwards, 48 on the tensor cores and 72 on the CUDA cores, and 72
+    backwards, 24 and 48; the key biases, whose gradient is 0 in exact
+    arithmetic, held to the tree's largest gradient entry); 25b. reduced
+    Whisper-medium and LLaVA-NeXT train steps on the card against the CPU
+    route;
 26. serving LLaVA-NeXT-Mistral-7B at full width and depth (2880 zero image
     rows, prompt 32, 32 tokens): 32 tensor-core and 992 split-K calls;
     then LLaVA-NeXT reduced on the card against the CPU route;
@@ -223,7 +227,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     together (a fake world of 256 or 512 ranks in each, host-only, so it
     never meets phase 33's gloo world): OLMo-1B ``train_4k`` on pod16x16
     and on pod2x16x16, DeepSeek-V2 ``decode_32k`` on pod16x16 (the expert-
-    parallel dispatch's all-gather), and ``--fedx --arch olmo-1b`` on
+    parallel dispatch's all-gather), xLSTM-1.3B ``decode_32k`` on pod16x16
+    (its recurrences shard by shard), and ``--fedx --arch olmo-1b`` on
     pod2x16x16; each combination's seconds, FLOPs and HBM bytes per
     device, collectives by kind, cross-pod bytes, dominant term and bound
     beside 6·N·D ÷ chips; the FedX round's cross-pod bytes below
@@ -309,16 +314,18 @@ FA_TOL = {F32: 2e-5, BF16: 3e-2}
 # the error's RMS over the output within 2^-7 of the output's RMS.
 FA_ROW_TOL, FA_RMS_TOL = 2 ** -6, 2 ** -7
 # Phase 22: the shapes of the encoder-decoder and vision paths, batch 4,
-# bf16.  Whisper-medium (16 heads on 16, hd 64): its encoder (1500 frames,
-# no multiple of the 128-row tile, bidirectional), cross-attention at
-# prefill (a 32-token prompt against the 1500 frames) and at decode (the
-# cross cache, no kv_len); LLaVA-NeXT-Mistral-7B (32 on 8, hd 128): prefill
-# of 2880 image rows and 32 text tokens, decode over a 2944-position cache.
+# in the types the paths give them.  Whisper-medium (16 heads on 16, hd
+# 64): its encoder (1500 frames, no multiple of the 128-row tile,
+# bidirectional) and cross-attention at prefill (a 32-token prompt against
+# the 1500 frames) in float32, as the reference's promotion runs them (the
+# CUDA-core route), and at decode over the bf16 cross cache (no kv_len);
+# LLaVA-NeXT-Mistral-7B (32 on 8, hd 128), bf16: prefill of 2880 image rows
+# and 32 text tokens, decode over a 2944-position cache.
 FA_NEW_TIMED = (
     ("whisper encoder", (4, 1500, 1500, 16, 16, 64, False, None, 0, None,
-                         BF16, BF16)),
+                         F32, F32)),
     ("whisper cross prefill", (4, 32, 1500, 16, 16, 64, False, None, 0, None,
-                               BF16, BF16)),
+                               F32, F32)),
     ("whisper cross decode", (4, 1, 1500, 16, 16, 64, False, None, 0, None,
                               BF16, BF16)),
     ("llava prefill", (4, 2912, 2912, 32, 8, 128, True, None, 0, None,
@@ -495,12 +502,13 @@ def size_errors(got, want):
 def flash_phase(torch, mem_rate, bf16_rate,
                 title="7. flash_attention against its plain version on the "
                       "card", all_shapes=FA_SHAPES, timed_shapes=FA_TIMED,
-                seed=7):
+                seed=7, f32_rate=None):
     """Phase 7 (and 22 at the new paths' shapes): every shape of
     ``all_shapes`` against the plain version on its route, then the
-    ``timed_shapes`` timed, each with the timer check.  Returns the
-    kernel's entry of the kernels line (all but its launches) and its
-    times at the timed shapes, by label."""
+    ``timed_shapes`` timed, each with the timer check; a float32 shape's
+    operations bounded at ``f32_rate`` (the CUDA cores'), a bf16 one's at
+    ``bf16_rate``.  Returns the kernel's entry of the kernels line (all but
+    its launches) and its times at the timed shapes, by label."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
@@ -571,7 +579,8 @@ def flash_phase(torch, mem_rate, bf16_rate,
         timed = timed_entry(
             torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
             lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
-            nbytes, [(flops, bf16_rate)], mem_rate, clean=Sq == 1)
+            nbytes, [(flops, bf16_rate if shape[10] == BF16 else f32_rate)],
+            mem_rate, clean=Sq == 1)
         timed["route"] = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
         if shape in sizes:
             timed["row_err"], timed["rms_err"] = sizes[shape]
@@ -1482,8 +1491,12 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     gradients through the kernels against the plain versions' with each
     input cut to ``plain_seq`` positions (an int, or one for each batch
     key), ``zero_leaves`` held within ZERO_LEAF_TOL of the largest entry
-    of the whole tree's gradient.  Returns the launches of a step and the
-    step's numbers."""
+    of the whole tree's gradient.  Flash's routes follow from ``cfg``: an
+    encoder's layers and the cross-attentions (the float32 encoder and its
+    K/V) on the CUDA cores, once for each encoder layer and twice for each
+    decoder layer (its group's checkpointing runs the forward again), each
+    backward once; the rest on the tensor cores.  Returns the launches of a
+    step and the step's numbers."""
     from repro_torch import optim, random, tree
     from repro_torch.data import make_token_dataset
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
@@ -1517,6 +1530,14 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     if extra is not None:
         for batch in batches:
             batch.update(extra(B))
+    cross = cfg.num_layers if cfg.cross_attention else 0
+    fwd_cuda, bwd_cuda = cfg.encoder_layers + 2 * cross, \
+        cfg.encoder_layers + cross
+    want_routes = {"tensor_core": want_launches["flash_attention"] - fwd_cuda,
+                   "split_k": 0, "cuda_core": fwd_cuda}
+    want_bwd_routes = {
+        "tensor_core": want_launches["flash_attention_bwd"] - bwd_cuda,
+        "cuda_core": bwd_cuda}
     step_s, launches, routes, bwd_routes = [], None, None, None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -1536,12 +1557,10 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
               f"non-finite metrics at step {i}: {vals}")
         check(got == want_launches, f"launches in step {i}: {got}, expected "
               f"{want_launches}")
-        check(got_routes["split_k"] == got_routes["cuda_core"] == 0,
-              f"the train step's attention left the tensor cores: {got_routes}")
-        check(got_bwd == {"tensor_core": want_launches["flash_attention_bwd"],
-                          "cuda_core": 0},
-              f"the train step's attention backward left the tensor cores: "
-              f"{got_bwd}")
+        check(got_routes == want_routes, f"the train step's attention routes: "
+              f"{got_routes}, expected {want_routes}")
+        check(got_bwd == want_bwd_routes, f"the train step's attention "
+              f"backward routes: {got_bwd}, expected {want_bwd_routes}")
         if i > 0:
             step_s.append(dt)
         launches, routes, bwd_routes = got, got_routes, got_bwd
@@ -1747,17 +1766,19 @@ def sq_sk_bwd_phase(torch, mem_rate, bf16_rate):
     return {**entry, "alike_keys_max_err": worst}
 
 
-def slice_phases(torch, counters, mem_rate, bf16_rate, smi, t_start,
-                 only=None):
+def slice_phases(torch, counters, rates, smi, t_start, only=None):
     """Phases 22-27 (those named in ``only``, or all), each followed by
     its seconds, the script's so far and the card's name and power limit
-    (``smi``).  Returns each phase's result by number."""
+    (``smi``).  ``rates``: the card's memory, float32, bf16 and exp rates.
+    Returns each phase's result by number."""
     from repro_torch.configs import get_arch
+    mem_rate, f32_rate, bf16_rate, _ = rates
     phases = {
         "22": lambda: flash_phase(
             torch, mem_rate, bf16_rate, "22. flash_attention at "
             "Whisper-medium's and LLaVA-NeXT's shapes",
-            [shape for _, shape in FA_NEW_TIMED], FA_NEW_TIMED, seed=22)[0],
+            [shape for _, shape in FA_NEW_TIMED], FA_NEW_TIMED, seed=22,
+            f32_rate=f32_rate)[0],
         "23": lambda: sq_sk_bwd_phase(torch, mem_rate, bf16_rate),
         "24": lambda: encdec_serve_phase(
             torch, counters, "24. serving Whisper-medium at full width and "
@@ -1784,17 +1805,21 @@ def encdec_serve_phase(torch, counters, title, cfg, want_params):
     """Phases 24 and 26: one full-width ``serve()`` (batch 4, prompt 32,
     32 tokens, temperature 1) with every counter set to 0 just before and
     read just after, flash's routes derived from the configuration: at
-    prefill one tensor-core call for each encoder layer and each decoder
-    attention (self and cross), at each of the 31 decode steps one split-K
-    call for each decoder attention; then the reduced configuration served
-    greedily on the card and on the CPU route (phase 9's check).  Returns
-    the launches, the routes and the serving numbers."""
+    prefill one tensor-core call for each decoder self-attention and one
+    CUDA-core call for each encoder layer and each cross-attention (the
+    float32 encoder, as the reference's promotion runs it, and its float32
+    K/V), at each of the 31 decode steps one split-K call for each decoder
+    attention (the cross K/V cached as bf16); then the reduced
+    configuration served greedily on the card and on the CPU route (phase
+    9's check).  Returns the launches, the routes and the serving
+    numbers."""
     from repro_torch.configs import get_arch
     print(f"== {title}")
     P, G = 32, 32
-    attn = cfg.num_layers * (2 if cfg.cross_attention else 1)
-    routes = {"tensor_core": cfg.encoder_layers + attn,
-              "split_k": attn * (G - 1), "cuda_core": 0}
+    cross = cfg.num_layers if cfg.cross_attention else 0
+    attn = cfg.num_layers + cross
+    routes = {"tensor_core": cfg.num_layers, "split_k": attn * (G - 1),
+              "cuda_core": cfg.encoder_layers + cross}
     n_params = meta_tree_size(cfg, cfg.vision_tokens + P + G)
     print(f"  parameter tree {n_params:,} (ArchConfig.num_params() "
           f"{cfg.num_params():,}); prompt {P} after {cfg.vision_tokens} image "
@@ -1807,53 +1832,58 @@ def encdec_serve_phase(torch, counters, title, cfg, want_params):
          "ssm_scan": 0, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
         routes, f"the {cfg.name} serving path", P=P)
     if cfg.encoder_layers:
-        numbers["encoder_vs_float32"] = encoder_precision(torch, cfg)
+        numbers["encoder_card_vs_cpu"] = encoder_precision(torch, cfg)
     card_vs_cpu(torch, f"{cfg.name} reduced", get_arch(cfg.name).reduced())
     return launches, got, numbers
 
 
-# The port runs an encoder in param_dtype (Model._encode casts the frames
-# plus positions to it), where the reference lets float32 frames promote
-# its bf16 weights to a float32 encoder (ROADMAP queue 3).  Phase 24 reads
-# the difference at full width: the bf16 encoder's output against a
-# float32 encoder on the same weights and frames, held to ENC_BF16_RMS_TOL
-# in RMS over the float32 output's RMS.
-ENC_BF16_RMS_TOL = 2 ** -5
+# Float32 frames run a bf16 encoder in float32 (``dense_apply`` takes the
+# weights as float32), as JAX's promotion runs the reference's.  Phase 24
+# holds the card's float32 encoder (cuBLAS with TF32 off, flash's CUDA-core
+# route) against the CPU route's (``blockwise_attention``) on the same bf16
+# weights and frames, at ENC_CARD_CPU_RMS_TOL in RMS over the CPU output's
+# RMS: float32 sums in another order, through 24 layers.
+ENC_CARD_CPU_RMS_TOL = 2 ** -14
 
 
 def encoder_precision(torch, cfg):
-    """The encoder's output in bf16 (the port's) against float32 (the
-    reference's promotion) on one drawing of the weights and 4 x
-    ``encoder_seq`` frames: RMS and largest differences over the float32
-    output's, and each run's flash routes."""
+    """The encoder's output on the card against the CPU route on one
+    drawing of the bf16 weights and 1 x ``encoder_seq`` frames: both
+    float32; RMS and largest differences over the CPU output's, and the
+    card's flash routes."""
     from repro_torch import random, tree
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.models.transformer import build_model
     dev = torch.device("cuda")
-    params = build_model(cfg, max_seq=8).init(random.PRNGKey(0, dev))
+    model = build_model(cfg, max_seq=8)
+    params = model.init(random.PRNGKey(0, dev))
     enc = {k: params[k] for k in ("encoder", "enc_pos", "enc_norm")}
     del params
-    frames = model_extras(cfg, 4, random.PRNGKey(2, dev), "cuda")["encoder_embeds"]
-    outs, routes = [], []
-    for dt in (cfg.param_dtype, torch.float32):
-        model = build_model(dataclasses.replace(cfg, param_dtype=dt), max_seq=8)
-        before = dict(fa_kernel.route_launches)
-        with torch.no_grad():
-            outs.append(model._encode(tree.map(lambda t: t.to(dt), enc),
-                                      frames).float())
-        routes.append({r: fa_kernel.route_launches[r] - before[r]
-                       for r in fa_kernel.ROUTES})
-    got, want = outs
+    frames = model_extras(cfg, 1, random.PRNGKey(2, dev), "cuda")["encoder_embeds"]
+    before = dict(fa_kernel.route_launches)
+    with torch.no_grad():
+        got = model._encode(enc, frames)
+        routes = {r: fa_kernel.route_launches[r] - before[r]
+                  for r in fa_kernel.ROUTES}
+        want = model._encode(tree.map(lambda t: t.cpu(), enc), frames.cpu())
+    got = got.cpu()
     diff = got - want
     rms = (diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
     largest = (diff.abs().max() / want.abs().max()).item()
-    print(f"  the {cfg.param_dtype} encoder against a float32 one on the same "
-          f"weights (4 x {cfg.encoder_seq} frames): RMS {rms:.3e} of the "
-          f"float32 output's (tol 2^-5), largest {largest:.3e} of its largest "
-          f"entry; routes {routes[0]} and {routes[1]}")
-    check(math.isfinite(rms) and rms <= ENC_BF16_RMS_TOL,
-          "the bf16 encoder is further from the float32 one than expected")
-    del enc, frames, outs, got, want, diff
+    print(f"  the float32 encoder on the card against the CPU route on the "
+          f"same {cfg.param_dtype} weights (1 x {cfg.encoder_seq} frames): "
+          f"{got.dtype} and {want.dtype}, RMS {rms:.3e} of the CPU output's "
+          f"(tol 2^-14), largest {largest:.3e} of its largest entry; card "
+          f"routes {routes}")
+    check(got.dtype == want.dtype == torch.float32,
+          f"the encoder's output is {got.dtype} / {want.dtype}, not float32")
+    check(routes == {"tensor_core": 0, "split_k": 0,
+                     "cuda_core": cfg.encoder_layers},
+          f"the float32 encoder left the CUDA-core route: {routes}")
+    check(math.isfinite(rms) and rms <= ENC_CARD_CPU_RMS_TOL,
+          "the card's float32 encoder is further from the CPU route's than "
+          "expected")
+    del enc, frames, got, want, diff
     torch.cuda.empty_cache()
     return {"rms": rms, "largest": largest}
 
@@ -1863,18 +1893,20 @@ def whisper_train_phase(torch, counters):
     decoder tokens (its max_target_positions, arXiv:2212.04356) and 1500
     encoder frames drawn from the seed (``train_phase``): 24 encoder
     forwards, 2 x 24 decoder attentions run twice (the groups' activation
-    checkpointing), 72 backwards, all on the tensor cores; the plain
+    checkpointing), 72 backwards; the decoder's self-attention on the
+    tensor cores, the float32 encoder and cross-attention (K/V from the
+    float32 encoder output, as the reference) on the CUDA cores; the plain
     comparison on the 448 tokens and 750 of the frames.  Then 25b."""
     from repro_torch import random
     from repro_torch.configs import get_arch
     cfg = get_arch("whisper-medium")
-    S, n = 448, cfg.num_layers
+    S, n, enc = 448, cfg.num_layers, cfg.encoder_layers
     key = random.PRNGKey(2, torch.device("cuda"))
     out = train_phase(
         torch, counters, "25. training Whisper-medium at full width and depth",
         cfg, 813_328_384,
-        {"bwo_evolve": 0, "flash_attention": cfg.encoder_layers + 2 * 2 * n,
-         "flash_attention_bwd": cfg.encoder_layers + 2 * n, "ssm_scan": 0,
+        {"bwo_evolve": 0, "flash_attention": enc + 2 * 2 * n,
+         "flash_attention_bwd": enc + 2 * n, "ssm_scan": 0,
          "ssm_scan_bwd": 0},
         {"tokens": S, "labels": S, "encoder_embeds": 750}, S=S,
         extra=lambda B: model_extras(cfg, B, key, "cuda"),
@@ -2602,9 +2634,11 @@ DRYRUN_COMBOS = (
                                      "train_4k", "--multi-pod"]),
     ("deepseek-v2-236b decode_32k pod16x16",
      ["--arch", "deepseek-v2-236b", "--shape", "decode_32k"]),
+    ("xlstm-1.3b decode_32k pod16x16",
+     ["--arch", "xlstm-1.3b", "--shape", "decode_32k"]),
     ("olmo-1b fedx round pod2x16x16", ["--arch", "olmo-1b", "--fedx"]))
 DRYRUN_LOCAL_STEPS = 8           # the FedX round's, the dry run's default
-DRYRUN_TIMEOUT = 600             # seconds, all four together
+DRYRUN_TIMEOUT = 600             # seconds, all five together
 
 
 def _dryrun_file(flags):
@@ -3880,7 +3914,8 @@ def main() -> int:
           f"script so far {time.perf_counter() - t_start:.1f} s")
 
     # ------------------- 22.-27. encoder-decoder, vision, the int8 cache --
-    new = slice_phases(torch, counters, mem_rate, bf16_rate, smi, t_start)
+    new = slice_phases(torch, counters, (mem_rate, f32_rate, bf16_rate,
+                                         exp_rate), smi, t_start)
     fa_new, fa_bwd_new = new["22"], new["23"]
     whisper_launches, whisper_routes, whisper_serve = new["24"]
     whisper_train, whisper_step = new["25"]

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -85,10 +86,18 @@ def close_world() -> None:
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str]):
-    """A CPU ``DeviceMesh`` of ``shape`` over a fake world of its size."""
+    """A CPU ``DeviceMesh`` of ``shape`` over a fake world of its size, with
+    a flattened mesh for each set of two or more of its dims: ``DTensor``
+    then reduces a sum pending over several dims (a replicated weight's
+    gradient, partial over (data, model)) by one collective over their
+    joint group, as XLA does, not by one a dim."""
     from torch.distributed.device_mesh import init_device_mesh
     fake_world(math.prod(shape))
-    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+    mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+    for r in range(2, len(names) + 1):
+        for dims in itertools.combinations(names, r):
+            mesh[dims]._flatten("_".join(dims))
+    return mesh
 
 
 def production_mesh(multi_pod: bool, mesh_shape: Optional[tuple] = None):
@@ -213,7 +222,11 @@ def lower_combo(arch_name: str, shape_name: str, *, multi_pod: bool = False,
                             rules.cache_spec)
             tok, pos = batch["tokens"], S - 1
             step = make_serve_step(model, window=window)
-            args = (params, tok, cache, torch.zeros((), dtype=torch.int32))
+            # the position is an argument where the step reads it: jit drops
+            # an unread one (keep_unused=False), as for xLSTM's recurrences
+            args = (params, tok, cache) + (
+                (torch.zeros((), dtype=torch.int32),)
+                if _reads_position(cfg) else ())
             rec, out, run_s, gflops = _run(
                 lambda: step(params, tok, cache, pos))
         arg_bytes, out_bytes = local_bytes(args), local_bytes(out)
@@ -268,6 +281,13 @@ def lower_combo(arch_name: str, shape_name: str, *, multi_pod: bool = False,
                       (mflops / chips) / flops_per_dev if flops_per_dev
                       else None},
     }
+
+
+def _reads_position(cfg: ArchConfig) -> bool:
+    """Whether a decode step reads its cache position: attention writes its
+    KV cache there (and RoPE or learned positions read it); recurrent
+    layers (Mamba, xLSTM) carry their state and read none."""
+    return "attn" in cfg.block_pattern or cfg.pos_emb == "learned"
 
 
 def _mesh_tag(mesh) -> str:

@@ -21,6 +21,7 @@ from repro_torch import optim as opt_lib
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models.transformer import Model
+from repro_torch.sharding.context import is_dtensor
 
 
 def softmax_xent(logits, labels):
@@ -54,8 +55,12 @@ def make_grad_fn(model: Model, accum_steps: int = 1):
     def one(params, leaves, batch):
         total, (loss, aux) = loss_fn(params, batch)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        # a leaf the loss does not reach has a zero gradient, as jax.grad's
-        grads = [torch.zeros_like(p) if g is None else g
+        # a leaf the loss does not reach has a zero gradient, as jax.grad's;
+        # on a mesh each gradient is reduced into its parameter's layout
+        # here, once, and not by each op of the update that reads it
+        grads = [torch.zeros_like(p) if g is None
+                 else g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(g) and g.placements != p.placements else g
                  for p, g in zip(leaves, grads)]
         return (total.detach(), loss.detach(), aux.detach()), grads
 

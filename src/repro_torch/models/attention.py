@@ -11,8 +11,10 @@ as the reference does: its heads (qk 192, v 128, 128 query heads on a
 latent) are no shape the kernel takes.
 
 Cross-attention (Whisper's decoder over the encoder's output) computes its
-K/V from ``kv_source`` without RoPE; prefill stores them in the layer's
-``{"ck", "cv"}`` cache (bf16) and decode attends over them there.  The
+K/V from ``kv_source`` without RoPE, in the encoder output's type (float32)
+with the scores in float32; prefill stores them in the layer's
+``{"ck", "cv"}`` cache (bf16) and decode attends over them there, cast to
+q's type.  The
 int8 KV cache (``gqa_cache_init(quantized=True)``) stores int8 values and
 one bf16 scale per (position, KV head) and is dequantized before attention,
 as the reference's, so the kernel still sees the model's type.
@@ -211,8 +213,11 @@ def gqa_apply(p, x, *, cfg: ArchConfig, mode: str, positions,
         out = _attend(q, cache["ck"].to(q.dtype), cache["cv"].to(q.dtype),
                       causal=False, window=None, q_block=8)
     elif cross:
-        out = _attend(q, k, v, causal=False, window=None,
-                      q_block=min(1024, max(8, S)))
+        # q in the model's type, K/V from the float32 encoder output: the
+        # scores in float32 (q taken exactly as float32), the output in q's
+        # type, as the reference's blockwise attention
+        out = _attend(q.to(k.dtype), k, v, causal=False, window=None,
+                      q_block=min(1024, max(8, S))).to(q.dtype)
         if mode == "prefill" and cache is not None and "ck" in cache:
             cache["ck"].copy_(k)
             cache["cv"].copy_(v)

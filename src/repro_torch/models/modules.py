@@ -34,7 +34,15 @@ def dense_init(key, in_dim: int, out_dim: int, *, bias: bool = False,
 
 
 def dense_apply(p, x):
-    y = x @ p["w"]
+    """``x @ w (+ b)``.  Operands of two types compute in the wider, as
+    JAX's promotion does in the reference's products: float32 activations
+    (Whisper's frames) take bf16 weights as float32, whose values stay
+    bf16's."""
+    w = p["w"]
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

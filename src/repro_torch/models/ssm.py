@@ -22,7 +22,8 @@ from repro_torch import random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import modules as nn
-from repro_torch.sharding.context import is_dtensor, local_dims
+from repro_torch.sharding.context import (batch_axes, constrain, is_dtensor,
+                                          local_dims)
 
 
 def _dims(cfg: ArchConfig):
@@ -95,7 +96,16 @@ def mamba_apply(p, x, *, cfg: ArchConfig, mode: str, state=None):
     the new state into ``state`` in place and return it."""
     S = x.shape[1]
     cw = cfg.ssm.conv_width
-    if is_dtensor(x):
+    if is_dtensor(x) and mode == "decode":
+        # one token's product is smaller than the weight: column-parallel,
+        # gathered over ``model`` once and the halves resharded (XLA
+        # permutes them)
+        xz = constrain(nn.dense_apply(nn.tp_weight(p["in_proj"], None,
+                                                   "model"), x),
+                       batch_axes(), None, None)
+        x_in, z = (constrain(t, batch_axes(), None, "model")
+                   for t in xz.chunk(2, dim=-1))
+    elif is_dtensor(x):
         # on a mesh the halves are two column-parallel products: chunking
         # one product's model-sharded columns would gather them whole
         w = p["in_proj"]["w"]

@@ -250,19 +250,18 @@ class Model:
     # ---------------- encoder ----------------
     def _encode(self, params, enc_embeds):
         """enc_embeds: (B, enc_S, d), the stubbed frontend's frames ->
-        the encoder's output (B, enc_S, d) in ``param_dtype``.  The frames
-        plus learned positions are cast to ``param_dtype``, as the
-        decoder's input is; the reference adds them in the frames' type
-        and lets float32 frames promote a bf16 encoder to float32, which
-        torch's products refuse.  Bidirectional attention, each layer's
-        FFN, then ``enc_norm``; no activation checkpointing, as the
-        reference's."""
+        the encoder's output (B, enc_S, d).  The frames plus learned
+        positions keep the wider type, and so does every layer: float32
+        frames run a bf16 encoder in float32 (``nn.dense_apply`` takes the
+        weights as float32; attention on the kernels' float32 route), as
+        JAX's promotion runs the reference's.  Bidirectional attention,
+        each layer's FFN, then ``enc_norm``; no activation checkpointing,
+        as the reference's."""
         cfg = self.cfg
         enc_cfg = _encoder_cfg(cfg)
         S = enc_embeds.shape[1]
         pos = torch.arange(S, device=enc_embeds.device)
         x = enc_embeds + nn.embedding_apply(params["enc_pos"], pos)[None]
-        x = x.to(cfg.param_dtype)
         for i in range(cfg.encoder_layers):
             lp = tree.map(lambda a: a[i], params["encoder"])
             h = nn.norm_apply(cfg.norm, lp["norm1"], x)

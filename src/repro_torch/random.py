@@ -218,10 +218,42 @@ _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                   0.00943887047, 1.00167406, 2.83297682)
 
 
+def _residual(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """w - y * y, with y * y taken exactly as a float32 sum p + e (Dekker's
+    product, Veltkamp's split at 2^12 + 1): w - p is exact where p is near
+    w, so one rounding remains."""
+    c = y * 4097.0
+    hi = c - (c - y)
+    lo = y - hi
+    p = y * y
+    e = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+    return (w - p) - e
+
+
+def _sqrt_cpu(w: torch.Tensor) -> torch.Tensor:
+    """float32 sqrt, correctly rounded as XLA's, from float32 products and
+    sums alone: w * rsqrt(w), one Newton step on the exact residual, then
+    the float below or above taken where w lies past the midpoint with it
+    (every float32 in [1e-6, 1000) checked against numpy's sqrt).  The CPU
+    route's ``torch.sqrt`` goes through MKL's vector sqrt, which misses the
+    correctly rounded value by an ulp on ~0.6 % of inputs and, in a fresh
+    process at torch's default thread count, has rounded one worker
+    thread's first 16,384-element chunk to ~12 bits (3 runs in 80)."""
+    y = w * torch.rsqrt(w)
+    y = y + _residual(w, y) / (y + y)
+    r = _residual(w, y)
+    down = y - torch.nextafter(y, torch.zeros_like(y))
+    up = torch.nextafter(y, torch.full_like(y, math.inf)) - y
+    below = r + y * down - 0.25 * down * down < 0     # w < (y - down/2)^2
+    above = r - y * up - 0.25 * up * up > 0           # w > (y + up/2)^2
+    return torch.where(below, y - down, torch.where(above, y + up, y))
+
+
 def _erfinv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    root = _sqrt_cpu(w) if w.device.type == "cpu" else torch.sqrt(w)
+    w = torch.where(lt, w - 2.5, root - 3.0)
     p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0])
     for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
         p = torch.where(lt, a, b) + p * w

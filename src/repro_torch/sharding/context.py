@@ -132,11 +132,25 @@ class _Constrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, place):
         ctx.place = place
-        return x.redistribute(x.device_mesh, place)
+        return _redistribute(x, place)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(g.device_mesh, ctx.place), None
+        return _redistribute(g, ctx.place), None
+
+
+def _redistribute(x, place):
+    """``x.redistribute`` to ``place`` in two steps: first the mesh dims
+    that ``place`` replicates (a gather or a reduction over each, the rest
+    kept), then the rest.  A weight stored (data, model)-sharded and wanted
+    row-parallel is gathered over ``data`` and its shards exchanged over
+    ``model`` (an all-to-all), as XLA reshards it; ``DTensor``'s own plan
+    gathers the whole weight and slices it."""
+    first = tuple(t if t.is_replicate() else s
+                  for s, t in zip(x.placements, place))
+    if first != tuple(x.placements) and first != tuple(place):
+        x = x.redistribute(x.device_mesh, first)
+    return x.redistribute(x.device_mesh, place)
 
 
 def constrain(x, *axes_):

@@ -13,7 +13,11 @@ Per device:
   multiplies every (query block, key) pair, the port's flash kernel counts
   the pairs its mask keeps.  The reference's attention FLOPs are its dots
   less those of the same step lowered with GQA's attention swapped for a
-  stand-in without products (MLA's stays: both packages run it plainly).
+  stand-in without products (MLA's stays: both packages run it plainly;
+  an arch without GQA attention, MLA's or xLSTM's, is not lowered again);
+* the collectives' ring link bytes by kind agree where both programs move
+  the same tensors (``COLLECTIVES_AGREE``; the kinds that differ and why
+  are listed beside it).
 """
 import ast
 import json
@@ -35,15 +39,16 @@ from repro_torch.models import transformer as tr_lib
 from repro_torch.models.transformer import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
-B, S, MESH = 8, 64, (2, 4)
-# (arch, mode): the dense GQA model, MoE with MLA, Mamba with MoE
+B, S, MESH, POD_MESH = 8, 64, (2, 4), (2, 2, 2)
+# (arch, mode): the dense GQA model, MoE with MLA, Mamba with MoE, the
+# recurrent mLSTM and sLSTM
 CHECKED = [("olmo-1b", "train"), ("olmo-1b", "prefill"), ("olmo-1b", "decode"),
            ("deepseek-v2-236b", "train"), ("deepseek-v2-236b", "decode"),
-           ("jamba-v0.1-52b", "train"), ("jamba-v0.1-52b", "decode")]
+           ("jamba-v0.1-52b", "train"), ("jamba-v0.1-52b", "decode"),
+           ("xlstm-1.3b", "train"), ("xlstm-1.3b", "decode")]
+# on the (pod, data, model) mesh of the FedX round: collectives only
+POD_CHECKED = [("olmo-1b", "train")]
 PRODUCTS_TOL = {"train": 0.05, "prefill": 0.02, "decode": 0.02}
-# reduced archs whose dry run DTensor cannot take, by the op without a rule
-KNOWN_FAILURES = {("xlstm-1.3b", "train"): "log_sigmoid_forward",
-                  ("xlstm-1.3b", "decode"): "log_sigmoid_forward"}
 
 REFERENCE = textwrap.dedent("""
     import json, os, sys
@@ -118,21 +123,28 @@ REFERENCE = textwrap.dedent("""
                 lowered = fn.lower(ps, tok, cs, pos)
             return lowered.compile()
 
-    sizes, combos = json.loads(sys.argv[1]), json.loads(sys.argv[2])
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(sizes),
-                ("data", "model"))
     out = {}
-    for arch, mode, B, S in combos:
+    for arch, mode, B, S, sizes, products in json.loads(sys.argv[1]):
+        names = ("pod", "data", "model")[-len(sizes):]
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(sizes), names)
         compiled = lower(arch, mode, B, S, mesh)
-        dots = analyze(compiled.as_text(), 8).dot_flops
-        attn.blockwise_attention = no_products
-        products = analyze(lower(arch, mode, B, S, mesh).as_text(),
-                           8).dot_flops
-        attn.blockwise_attention = blockwise
-        out[f"{arch}|{mode}"] = {
-            "argument_bytes":
-                compiled.memory_analysis().argument_size_in_bytes,
-            "dot_flops": dots, "products": products}
+        hc = analyze(compiled.as_text(), 8,
+                     pod_size=8 // sizes[0] if len(sizes) == 3 else None)
+        res = {"argument_bytes":
+                   compiled.memory_analysis().argument_size_in_bytes,
+               "dot_flops": hc.dot_flops,
+               "collectives_by_kind": hc.collectives_by_kind,
+               "n_collectives": hc.n_collectives,
+               "cross_pod_link_bytes": hc.cross_pod_link_bytes}
+        cfg = get_arch(arch).reduced()
+        if products and "attn" in cfg.block_pattern and cfg.mla is None:
+            attn.blockwise_attention = no_products
+            res["products"] = analyze(lower(arch, mode, B, S, mesh).as_text(),
+                                      8).dot_flops
+            attn.blockwise_attention = blockwise
+        elif products:              # no GQA attention: every dot a product
+            res["products"] = hc.dot_flops
+        out["|".join([arch, mode, "x".join(map(str, sizes))])] = res
     print(json.dumps(out))
 """)
 
@@ -142,9 +154,10 @@ def reference():
     """The reference's figures for CHECKED, from a subprocess started
     before the port's runs (they overlap)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    combos = ([[a, m, B, S, MESH, True] for a, m in CHECKED]
+              + [[a, m, B, S, POD_MESH, False] for a, m in POD_CHECKED])
     proc = subprocess.Popen(
-        [sys.executable, "-c", REFERENCE, json.dumps(MESH),
-         json.dumps([[a, m, B, S] for a, m in CHECKED])],
+        [sys.executable, "-c", REFERENCE, json.dumps(combos)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     got = {}
@@ -153,7 +166,10 @@ def reference():
         if not got:
             out, err = proc.communicate(timeout=600)
             assert proc.returncode == 0, err[-3000:]
-            got.update(json.loads(out.strip().splitlines()[-1]))
+            for key, res in json.loads(out.strip().splitlines()[-1]).items():
+                arch, mode, mesh = key.split("|")
+                got[f"{arch}|{mode}"
+                    if mesh == "x".join(map(str, MESH)) else key] = res
         return got
     yield result
     if proc.poll() is None:
@@ -164,7 +180,11 @@ def reference():
 @pytest.fixture(scope="module")
 def port(reference):
     """Every reduced arch's train and decode dry run (and OLMo's prefill)
-    on the (2, 4) mesh: the result, or the error it raised."""
+    on the (2, 4) mesh, and POD_CHECKED's on (2, 2, 2): the result, or the
+    error it raised.  The world of 8 stays up until the module's last test
+    (``test_fedx_round_sends_less_across_pods_than_sync_steps`` runs in it):
+    a ``DTensor`` made later on a mesh equal to one of a destroyed world
+    can meet that world's groups in torch's caches."""
     out = {}
     try:
         for arch in ARCHS:
@@ -176,9 +196,13 @@ def port(reference):
                         shape=InputShape(mode, S, B, mode), mesh_shape=MESH)
                 except Exception as e:              # noqa: BLE001
                     out[arch, mode] = e
+        for arch, mode in POD_CHECKED:
+            out[arch, mode, POD_MESH] = dryrun.lower_combo(
+                arch, mode, multi_pod=True, cfg=get_arch(arch).reduced(),
+                shape=InputShape(mode, S, B, mode), mesh_shape=POD_MESH)
+        yield out
     finally:
         dryrun.close_world()
-    return out
 
 
 def _flash_flops(res) -> float:
@@ -188,18 +212,14 @@ def _flash_flops(res) -> float:
 
 
 def test_every_reduced_arch_runs_or_fails_loudly(port):
-    """Each reduced arch's train and decode dry run completes, except the
-    known ones, each of which raises where DTensor has no rule."""
+    """Each reduced arch's train and decode dry run completes: none raises
+    (xLSTM's gates and recurrences run shard by shard)."""
     failed = {k: v for k, v in port.items() if isinstance(v, Exception)}
-    assert set(failed) == set(KNOWN_FAILURES), {
-        k: repr(v)[:200] for k, v in failed.items()}
-    for key, op in KNOWN_FAILURES.items():
-        assert isinstance(failed[key], NotImplementedError)
-        assert op in str(failed[key])
+    assert not failed, {k: repr(v)[:200] for k, v in failed.items()}
     for key, res in port.items():
-        if key not in failed:
-            assert res["cost"]["flops_per_device"] > 0, key
-            assert res["chips"] == 8 and res["mesh"] == "pod2x4"
+        assert res["cost"]["flops_per_device"] > 0, key
+        assert res["chips"] == 8
+        assert res["mesh"] == ("pod2x2x2" if POD_MESH in key else "pod2x4")
 
 
 @pytest.mark.parametrize("arch,mode", CHECKED)
@@ -215,6 +235,114 @@ def test_product_flops_agree_with_the_references(port, reference, arch,
     products = res["cost"]["flops_per_device"] - _flash_flops(res)
     assert products == pytest.approx(ref["products"],
                                      rel=PRODUCTS_TOL[mode])
+
+
+# Collectives: each rank's ring link bytes by kind, the same formulas on
+# both sides (``graph_analysis.analyze`` against ``hlo_analysis.analyze``).
+# The two programs are partitioned by different planners (DTensor's op by
+# op, XLA's SPMD pass over the whole step), so a kind agrees only where
+# both move the same tensors (``COLLECTIVES_AGREE``); those are held within
+# COLLECTIVES_RTOL, which leaves room for the few small tensors only one
+# side moves (a norm's partial sums, the loss, the sLSTM's ``rh``).  Kinds
+# that differ, and why:
+# * collective-permute: the reference's only.  XLA reshards an activation
+#   between two shardings of one dim (Mamba's and the mLSTM's in_proj
+#   halves, a halo, the gradient's layout) by permuting shards; DTensor has
+#   no such collective.  At decode the port gathers the in_proj product
+#   over ``model`` once and slices its halves (all-gather); at train
+#   Mamba's halves are two column-parallel products (their weights
+#   gathered over ``model``) and the mLSTM gathers ``up`` once, since its
+#   q, k and v take the rows whole, as the reference's take xb.
+# * reduce-scatter: the port's only.  DTensor reduces a pending sum into a
+#   shard by a reduce-scatter (half an all-reduce's ring bytes); XLA on
+#   the host platform all-reduces and slices.  So at prefill and on the
+#   FedX mesh the port's all-reduce plus twice its reduce-scatter is held
+#   against the reference's all-reduce ("reductions").
+# * all-reduce and all-gather of a train step: the backward's reductions
+#   (DTensor's reduce-scatter then gather, XLA's all-reduce of the
+#   activations' gradients over ``model``) and where each side gathers
+#   (weights over ``data``, or activations over ``model``) differ.  At
+#   xLSTM XLA all-reduces each product's share of xb's gradient (q, k, v,
+#   the gates) on its own; the port sums them on each rank and reduces
+#   once (its all-reduce about half the reference's).
+# * all-to-all: the CPU group's all-gather stand-in is counted as the
+#   all-to-all asked for (``analysis.walker``); it agrees where both
+#   exchange a weight's shards (OLMo, Jamba's attention).  At xLSTM decode
+#   the port's step leaves C where the cache keeps it (its key rows over
+#   ``model``) and sums the read-out's products over ``model`` (all-reduce
+#   of (B, h, dh) and (B, h)); XLA exchanges C into heads (an all-to-all,
+#   ~93 % of its bytes of that kind).  So the port's xLSTM decode moves
+#   about half the reference's all-to-all bytes and 14x its (small)
+#   all-reduce bytes; its other all-to-all and all-reduce bytes are the
+#   row-parallel ``down``'s weight exchanged over ``model`` and its
+#   pending sum, where XLA keeps ``down`` as stored (d over ``model``) and
+#   gathers its input.
+# * counts (``n_collectives``) are not compared: the reference scans its
+#   layers (a collective in the scan's body is one instruction) and
+#   combines all-reduces into tuples; the port records every launch (the
+#   sLSTM's h gathered over ``model`` at every step of its loop, one
+#   instruction in the reference's scan).
+# Each combo's total, the port's over the reference's, is held within
+# COLLECTIVES_TOTAL_RTOL of its reading here (torch 2.13 against this jax):
+# a collective the port's program gains or loses moves it.
+COLLECTIVES_RTOL = 0.1
+COLLECTIVES_TOTAL_RTOL = 0.1
+COLLECTIVES_TOTAL = {
+    ("olmo-1b", "train"): 0.600, ("olmo-1b", "prefill"): 0.670,
+    ("olmo-1b", "decode"): 0.985, ("deepseek-v2-236b", "train"): 0.748,
+    ("deepseek-v2-236b", "decode"): 1.436,
+    ("jamba-v0.1-52b", "train"): 0.828, ("jamba-v0.1-52b", "decode"): 0.944,
+    ("xlstm-1.3b", "train"): 0.633, ("xlstm-1.3b", "decode"): 0.951,
+    ("olmo-1b", "train", POD_MESH): 0.838}
+# xLSTM: both gather the same weights over ``data`` (in the forward and
+# its recompute) and the mLSTM's input rows over ``model`` (the port's
+# ``up`` whole, forward and recompute; XLA's xb, forward, recompute and
+# backward); at decode the weights' gathers are ~90 % of both
+COLLECTIVES_AGREE = {
+    ("olmo-1b", "decode"): ("all-gather", "all-reduce", "all-to-all"),
+    ("olmo-1b", "prefill"): ("all-to-all", "reductions"),
+    ("jamba-v0.1-52b", "decode"): ("all-gather", "all-reduce", "all-to-all"),
+    ("jamba-v0.1-52b", "train"): ("all-to-all",),
+    ("xlstm-1.3b", "train"): ("all-gather",),
+    ("xlstm-1.3b", "decode"): ("all-gather",),
+    ("olmo-1b", "train", POD_MESH): ("reductions",)}
+
+
+def _kinds(by_kind) -> dict:
+    out = dict(by_kind)
+    out["reductions"] = (by_kind.get("all-reduce", 0.0)
+                         + 2 * by_kind.get("reduce-scatter", 0.0))
+    return out
+
+
+@pytest.mark.parametrize("combo", CHECKED + [(a, m, POD_MESH)
+                                             for a, m in POD_CHECKED],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_collectives_agree_with_the_references(port, reference, combo):
+    """Run with ``-s`` to print each combo's bytes by kind and counts
+    (PERF.md's table of them)."""
+    res = port[combo]
+    key = "|".join(combo[:2]) + (
+        "|" + "x".join(map(str, combo[2])) if len(combo) == 3 else "")
+    ref = reference()[key]
+    got = _kinds(res["collectives"]["by_kind"])
+    want = _kinds(ref["collectives_by_kind"])
+    print(combo, "port", got, res["cost"]["n_collectives"],
+          "reference", want, ref["n_collectives"])
+    assert "collective-permute" not in got
+    assert "reduce-scatter" not in want
+    for kind in COLLECTIVES_AGREE.get(combo, ()):
+        assert got[kind] == pytest.approx(want[kind], rel=COLLECTIVES_RTOL), \
+            kind
+    total = sum(res["collectives"]["by_kind"].values())
+    assert total / sum(ref["collectives_by_kind"].values()) == pytest.approx(
+        COLLECTIVES_TOTAL[combo], rel=COLLECTIVES_TOTAL_RTOL)
+    if len(combo) == 3:
+        # the FedX mesh: the gradients' reductions over (pod, data) cross
+        # the pods in both; the port reduce-scatters where XLA all-reduces
+        # (half the ring bytes) and XLA's permutes cross them too
+        assert 0 < res["collectives"]["cross_pod_link_bytes"] \
+            <= ref["cross_pod_link_bytes"]
 
 
 def test_attention_is_held_on_its_own(port, reference):
@@ -280,10 +408,13 @@ def _keys(d) -> dict:
         for k, v in d.items()}
 
 
-def test_cli_writes_the_references_keys_and_failed_files(tmp_path):
+def test_cli_writes_the_references_keys_and_failed_files(tmp_path,
+                                                        monkeypatch):
     """``main`` writes <arch>__<shape>__pod16x16.json with the reference's
     keys from one process at full width, and a combination that raises
-    leaves .FAILED and exits 1."""
+    leaves .FAILED (and no stale JSON) and exits 1: every arch's dry run now
+    completes, so the raise is planted where DTensor refused xLSTM's gates
+    before, a sharding rule missing for an op."""
     src = (ROOT / "src/repro/launch/dryrun.py").read_text()
     fn = next(n for n in ast.walk(ast.parse(src))
               if isinstance(n, ast.FunctionDef) and n.name == "lower_combo")
@@ -302,11 +433,17 @@ def test_cli_writes_the_references_keys_and_failed_files(tmp_path):
                         if k not in extra}
     assert got_keys == want
 
-    assert dryrun.main(["--arch", "xlstm-1.3b", "--shape", "decode_32k",
-                        "--out", str(tmp_path)]) == 1
-    failed = tmp_path / "xlstm-1.3b__decode_32k__pod16x16.json.FAILED"
-    assert "Error: " in failed.read_text()
-    assert not (tmp_path / "xlstm-1.3b__decode_32k__pod16x16.json").exists()
+    def no_rule(*args, **kwargs):
+        raise NotImplementedError("Operator aten.log_sigmoid_forward.default "
+                                  "does not have a sharding strategy "
+                                  "registered.")
+    stale = tmp_path / "olmo-1b__decode_32k__pod16x16.json"
+    monkeypatch.setattr(dryrun, "lower_combo", no_rule)
+    assert dryrun.main(["--arch", "olmo-1b", "--shape", "decode_32k",
+                        "--out", str(tmp_path), "--force"]) == 1
+    failed = tmp_path / "olmo-1b__decode_32k__pod16x16.json.FAILED"
+    assert "NotImplementedError: " in failed.read_text()
+    assert not stale.exists()
     assert not torch.distributed.is_initialized()
 
 

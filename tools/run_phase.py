@@ -120,7 +120,7 @@ def main() -> int:
         counters = (bwo_evolve, flash_attention, ssm_scan,
                     flash_attention_bwd, ssm_scan_bwd)
         if slice_phases:
-            out = cs.slice_phases(torch, counters, mem, bf16, smi,
+            out = cs.slice_phases(torch, counters, (mem, f32, bf16, exp), smi,
                                   time.perf_counter(),
                                   only=set(phase.split(",")))
         else:
