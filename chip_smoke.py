@@ -54,8 +54,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    OLMo-1B's and Jamba's prefill and decode shapes (16 heads on 16 KV
    heads; 32 on 8), the reference's test cases in float32 and bfloat16, a
    windowed and a mixed-type (float32 queries, bf16 cache) shape, each on
-   the route ``flash_attention.route`` names for it (tensor cores, split-K
-   or CUDA cores), with the kernel's, the plain version's and
+   the route ``flash_attention.route`` names for it (tensor cores, split-K,
+   3xTF32 for float32 at hd 64, or CUDA cores), with the kernel's, the plain version's and
    ``scaled_dot_product_attention``'s times and the bound at the four
    serving shapes, and at the two decode shapes a second reading of the
    kernel and SDPA after a flush that leaves L2 clean;
@@ -106,8 +106,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     (``flash_attention_bwd_ref``) on the card, at OLMo-1B's and Jamba's
     train shapes, the reference's kernel sweep and ragged, windowed shapes,
     float32 and bf16, each on the route ``flash_attention_bwd.route`` names
-    (bf16 at hd 64 and 128 on the tensor cores, the rest on the CUDA
-    cores); two launches at each train shape equal bit for bit; the
+    (bf16 at hd 64 and 128 on the tensor cores, float32 at hd 64 on them
+    as 3xTF32, the rest on the CUDA cores); two launches at each train shape equal bit for bit; the
     route's, the CUDA-core route's, the plain version's and SDPA's backward
     times and the bound at the two train shapes;
 18. ``ssm_scan``'s backward kernel against ``ssm_scan_bwd_ref``, at the
@@ -142,24 +142,29 @@ Phases, each printing its own lines; any failure exits non-zero:
     on 16, hd 64, bidirectional), its cross-attention at prefill (32
     queries on 1500 keys) and at decode (1 on the 1500-frame cross cache),
     LLaVA-NeXT's prefill (2880 image rows + 32 text, 32 on 8, hd 128,
-    causal) and decode (a 2944-position cache, kv_len 2913);
+    causal) and decode (a 2944-position cache, kv_len 2913); Whisper's two
+    float32 shapes take the 3xTF32 route, timed beside the CUDA-core
+    kernel and SDPA in float32, with the CUDA cores' bound beside the
+    3xTF32 one;
 23. ``flash_attention``'s backward where queries and keys differ in
     number, both routes, phase 17's tolerances: Whisper's cross-attention
     train shape (4 x 448 queries on 1500 keys) and its encoder (1500 x
     1500), fewer and more queries than keys, causal or not, a window; two
-    launches at the timed shapes equal bit for bit;
+    launches at the timed shapes equal bit for bit; Whisper's two shapes
+    timed in bf16 and in float32 (the 3xTF32 route, beside the CUDA-core
+    kernel, SDPA's float32 backward and both bounds);
 24. serving Whisper-medium at full width and depth (``serve(get_arch(
     "whisper-medium"), batch=4, prompt_len=32, gen=32)``, 1500 zero encoder
     frames): the encoder in float32, as the reference's promotion runs it;
     at prefill 24 tensor-core flash calls (the decoder's self-attentions)
-    and 48 on the CUDA cores (24 float32 encoder layers, 24
+    and 48 on the 3xTF32 route (24 float32 encoder layers, 24
     cross-attentions over its float32 K/V), 1,488 split-K (31 steps x 48);
     the tree counted on the meta device; the card's float32 encoder against
     the CPU route's (RMS within 2^-14); then Whisper-medium reduced served
     on the card against the CPU route;
 25. training Whisper-medium at full width and depth on 4 x 448 tokens and
     1500 encoder frames drawn from the seed, as phases 19-20 (120 flash
-    forwards, 48 on the tensor cores and 72 on the CUDA cores, and 72
+    forwards, 48 on the tensor cores and 72 on the 3xTF32 route, and 72
     backwards, 24 and 48; the key biases, whose gradient is 0 in exact
     arithmetic, held to the tree's largest gradient entry); 25b. reduced
     Whisper-medium and LLaVA-NeXT train steps on the card against the CPU
@@ -281,6 +286,12 @@ CARDS = {"H100 PCIe": (2.0e12, 51e12, None, None),
          "H100": (3.35e12, 67e12, 989e12, 132 * 16 * 1.98e9),
          "H200": (4.8e12, 67e12, 989e12, 132 * 16 * 1.98e9)}
 
+# The dense TF32 tensor-core rate is half the bf16 one on Hopper (495 of
+# 989 TFLOP/s, NVIDIA's data sheet).  The 3xTF32 route takes each float32
+# product as three TF32 products, so its operations bound is 3 x the
+# function's operations at this rate, beside the CUDA cores' (float32
+# outside the tensor cores).
+TF32_PER_BF16 = 0.5
 FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
 SPIN_CYCLES = 2_000_000      # ~1 ms of the device's clock (time_ms's spin)
 
@@ -318,7 +329,7 @@ FA_ROW_TOL, FA_RMS_TOL = 2 ** -6, 2 ** -7
 # 64): its encoder (1500 frames, no multiple of the 128-row tile,
 # bidirectional) and cross-attention at prefill (a 32-token prompt against
 # the 1500 frames) in float32, as the reference's promotion runs them (the
-# CUDA-core route), and at decode over the bf16 cross cache (no kv_len);
+# 3xTF32 route), and at decode over the bf16 cross cache (no kv_len);
 # LLaVA-NeXT-Mistral-7B (32 on 8, hd 128), bf16: prefill of 2880 image rows
 # and 32 text tokens, decode over a 2944-position cache.
 FA_NEW_TIMED = (
@@ -486,6 +497,7 @@ def timer_check(torch, fa_kernel, route, kernel, sdpa):
     del scratch
     print("    timer check, ms with spin / without: " + ", ".join(
         f"{name} {a:.4f} / {b:.4f}" for name, (a, b) in got.items()))
+    return got
 
 
 def size_errors(got, want):
@@ -506,8 +518,9 @@ def flash_phase(torch, mem_rate, bf16_rate,
     """Phase 7 (and 22 at the new paths' shapes): every shape of
     ``all_shapes`` against the plain version on its route, then the
     ``timed_shapes`` timed, each with the timer check; a float32 shape's
-    operations bounded at ``f32_rate`` (the CUDA cores'), a bf16 one's at
-    ``bf16_rate``.  Returns the kernel's entry of the kernels line (all but
+    operations bounded at ``f32_rate`` (the CUDA cores') and, on the
+    3xTF32 route, three times over at the TF32 rate (its ``bound_ms``, the
+    CUDA cores' beside it), a bf16 one's at ``bf16_rate``.  Returns the kernel's entry of the kernels line (all but
     its launches) and its times at the timed shapes, by label."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
@@ -576,18 +589,28 @@ def flash_phase(torch, mem_rate, bf16_rate,
         print(f"  {label} {shape[:10]}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP; sdpa's max diff to the kernel "
               f"{lib_err:.2e}")
+        route = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
+        ops = [(flops, bf16_rate if shape[10] == BF16 else f32_rate)]
+        if route == "tf32x3":
+            ops = [(3 * flops, TF32_PER_BF16 * bf16_rate)]
         timed = timed_entry(
             torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
             lambda: fa_ref.flash_attention_ref(q, k, v, **kw), sdpa,
-            nbytes, [(flops, bf16_rate if shape[10] == BF16 else f32_rate)],
-            mem_rate, clean=Sq == 1)
-        timed["route"] = fa_kernel.route(q.dtype, k.dtype, hd, Sq)
+            nbytes, ops, mem_rate, clean=Sq == 1)
+        timed["route"] = route
+        if route == "tf32x3":
+            timed["cuda_core_bound_ms"] = max(nbytes / mem_rate,
+                                              flops / f32_rate) * 1e3
+            print(f"    the CUDA cores' bound {timed['cuda_core_bound_ms']:.4f} "
+                  f"ms (float32 at {f32_rate / 1e12:.0f} TFLOP/s); the "
+                  f"3xTF32 bound above")
         if shape in sizes:
             timed["row_err"], timed["rms_err"] = sizes[shape]
         times[label] = timed["ms"]
         shapes[label] = timed
-        timer_check(torch, fa_kernel, timed["route"],
-                    lambda: fa_ops.flash_attention(q, k, v, **kw), sdpa)
+        timed["timer_check"] = timer_check(
+            torch, fa_kernel, timed["route"],
+            lambda: fa_ops.flash_attention(q, k, v, **kw), sdpa)
     del inputs
     torch.cuda.empty_cache()
     first = shapes[timed_shapes[0][0]]
@@ -608,6 +631,12 @@ def reset_counts(counters):
         k.launches = 0
         if hasattr(k, "route_launches"):
             k.route_launches.update(dict.fromkeys(k.route_launches, 0))
+
+
+def fa_routes(**counts):
+    """flash_attention's calls by route: every route, 0 where not named."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    return {**dict.fromkeys(fa_kernel.ROUTES, 0), **counts}
 
 
 def check_routes(got, want, where):
@@ -709,8 +738,9 @@ def serve_phase(torch, counters, decode_kernel_ms):
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": want, "ssm_scan": 0,
          "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
-        {"tensor_core": cfg.num_layers, "split_k": cfg.num_layers * (G - 1),
-         "cuda_core": 0}, "the OLMo-1B serving path")
+        fa_routes(tensor_core=cfg.num_layers,
+                  split_k=cfg.num_layers * (G - 1)),
+        "the OLMo-1B serving path")
     # the same serve() again in this process: its times without the first
     # call's set-up (library load, cuBLAS handles, allocator growth)
     warm = serve(cfg, batch=B, prompt_len=P, gen=G, temperature=1.0,
@@ -881,7 +911,7 @@ def jamba_phase(torch, counters, ssm_times, fa_times):
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
          "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
-        {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
+        fa_routes(tensor_core=n_attn, split_k=n_attn * (G - 1)),
         "the Jamba serving path")
 
     # one drawing of the weights (serve()'s, seed 0) for the count, a
@@ -987,8 +1017,8 @@ def bf16_model_phase(torch):
         used = {r: fa_kernel.route_launches[r] - before[r]
                 for r in fa_kernel.ROUTES}
         want = with_ref(lambda: serve(cfg, **kw))
-        expect = {"tensor_core": cfg.num_layers, "split_k": cfg.num_layers * 7,
-                  "cuda_core": 0}
+        expect = fa_routes(tensor_core=cfg.num_layers,
+                           split_k=cfg.num_layers * 7)
         print(f"  olmo-1b reduced, bf16, window {window}: routes {used} "
               f"(expected {expect})")
         check(used == expect, f"the bf16 model took routes {used}")
@@ -1006,7 +1036,7 @@ def bf16_model_phase(torch):
     got, _ = prefill(params, {"tokens": prompts})
     used = {r: fa_kernel.route_launches[r] - before[1][r]
             for r in fa_kernel.ROUTES}
-    check(used == {"tensor_core": cfg.num_layers, "split_k": 0, "cuda_core": 0},
+    check(used == fa_routes(tensor_core=cfg.num_layers),
           f"the full-width bf16 prefill took routes {used}")
     want, _ = with_ref(lambda: prefill(params, {"tokens": prompts}))
     compare("olmo-1b full width, prefill (4 x 1024), last position",
@@ -1063,7 +1093,7 @@ def jamba_moe_phase(torch, counters, ssm_times, fa_times, mem_rate, bf16_rate):
         torch, counters, cfg,
         {"bwo_evolve": 0, "flash_attention": n_attn * G,
          "ssm_scan": n_mamba * G, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
-        {"tensor_core": n_attn, "split_k": n_attn * (G - 1), "cuda_core": 0},
+        fa_routes(tensor_core=n_attn, split_k=n_attn * (G - 1)),
         "the Jamba-with-experts serving path")
 
     # one drawing of the weights (serve()'s, seed 0): the count, a prefill
@@ -1116,8 +1146,7 @@ def deepseek_phase(torch, counters, mem_rate, bf16_rate):
     serve_checked(torch, counters, cfg,
                   {"bwo_evolve": 0, "flash_attention": 0, "ssm_scan": 0,
                    "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
-                  {"tensor_core": 0, "split_k": 0, "cuda_core": 0},
-                  "the DeepSeek-V2 serving path")
+                  fa_routes(), "the DeepSeek-V2 serving path")
     model = build_model(cfg, max_seq=P + G)
     params = model.init(random.PRNGKey(0, torch.device("cuda")))
     n_params, n_bytes = tree_size(tree, params)
@@ -1258,14 +1287,17 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate,
                     title="17. flash_attention backward against its plain "
                           "version on the card",
                     all_shapes=FA_BWD_SHAPES, timed_shapes=FA_BWD_TIMED,
-                    seed=17):
+                    seed=17, f32_rate=None, timed_dtypes=(BF16,)):
     """Phase 17 (and 23 where queries and keys differ in number).  Every
     shape of ``all_shapes`` on the route ``flash_attention_bwd.route``
     names for it; two launches at each timed shape give the same bits; at
-    the timed shapes the route's kernels (the tensor cores) are timed
-    beside the plain version, SDPA's backward and the bound, and the
-    CUDA-core route beside them.  Returns the backward kernels' entry of
-    the kernels line (all but its launches)."""
+    the timed shapes, in each of ``timed_dtypes``, the route's kernels are
+    timed beside the plain version, SDPA's backward in the same type and
+    the bound, and the CUDA-core route beside them (a float32 shape's
+    label ends in "float32"; on the 3xTF32 route its operations are
+    bounded three times over at the TF32 rate, the CUDA cores' bound at
+    ``f32_rate`` beside it).  Returns the backward kernels' entry of the
+    kernels line (all but its launches)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fa_bwd
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1301,12 +1333,14 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate,
               f"(tol {tol:.3g}) {'ok' if ok else 'FAILED'}")
         check(ok, f"flash_attention's backward disagrees at {shape}")
         max_err = max(max_err, *errs)
-        if dt == BF16 and shape[:8] in timed:
-            inputs[shape[:8]] = (q, k, v, do, kw)
+        if dt in timed_dtypes and shape[:8] in timed:
+            inputs[shape[:8], dt] = (q, k, v, do, kw)
         del got, want, lse
 
-    for label, shape in timed_shapes:
-        q, k, v, do, kw = inputs[shape]
+    timed_inputs = [(label if dt == BF16 else f"{label} float32", shape, dt)
+                    for label, shape in timed_shapes for dt in timed_dtypes]
+    for label, shape, dt in timed_inputs:
+        q, k, v, do, kw = inputs[shape, dt]
         again = [fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
                  for _ in range(2)]
         same = all(torch.equal(a, b) for a, b in zip(*again))
@@ -1322,9 +1356,9 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate,
         return "cuda_core"
 
     shapes = {}
-    for label, shape in timed_shapes:
+    for label, shape, dt in timed_inputs:
         B, Sq, Sk, H, KV, hd, causal, window = shape
-        q, k, v, do, kw = inputs[shape]
+        q, k, v, do, kw = inputs[shape, dt]
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -1342,13 +1376,23 @@ def flash_bwd_phase(torch, mem_rate, bf16_rate,
         pairs, _ = valid_pairs(Sq, Sk, causal, window, 0, None)
         nbytes = (3 * B * Sq * H * hd + 4 * B * Sk * KV * hd) * q.element_size()
         flops = 10 * B * H * hd * pairs         # 5 products, 2 FLOP each
-        print(f"  {label} {shape} bf16: {nbytes / 1e6:.1f} MB (q, k, v, dO "
+        route = fa_bwd.route(q.dtype, hd)
+        ops = [(flops, bf16_rate if dt == BF16 else f32_rate)]
+        if route == "tf32x3":
+            ops = [(3 * flops, TF32_PER_BF16 * bf16_rate)]
+        print(f"  {label} {shape} {dt}: {nbytes / 1e6:.1f} MB (q, k, v, dO "
               f"read, dq, dk, dv written), {flops / 1e9:.2f} GFLOP (5 "
               f"products over {pairs:,} pairs a head)")
         shapes[label] = timed_entry(
             torch, lambda: fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw),
-            plain, sdpa_bwd, nbytes, [(flops, bf16_rate)], mem_rate)
-        shapes[label]["route"] = fa_bwd.route(q.dtype, hd)
+            plain, sdpa_bwd, nbytes, ops, mem_rate)
+        shapes[label]["route"] = route
+        if route == "tf32x3":
+            shapes[label]["cuda_core_bound_ms"] = max(
+                nbytes / mem_rate, flops / f32_rate) * 1e3
+            print(f"    the CUDA cores' bound "
+                  f"{shapes[label]['cuda_core_bound_ms']:.4f} ms (float32 at "
+                  f"{f32_rate / 1e12:.0f} TFLOP/s); the 3xTF32 bound above")
         # the CUDA-core route (the only one before the tensor cores'), cold L2
         scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
         fa_bwd.route = cuda_core_route
@@ -1493,7 +1537,8 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     key), ``zero_leaves`` held within ZERO_LEAF_TOL of the largest entry
     of the whole tree's gradient.  Flash's routes follow from ``cfg``: an
     encoder's layers and the cross-attentions (the float32 encoder and its
-    K/V) on the CUDA cores, once for each encoder layer and twice for each
+    K/V) on the route ``route`` names for float32 (3xTF32 at hd 64), once
+    for each encoder layer and twice for each
     decoder layer (its group's checkpointing runs the forward again), each
     backward once; the rest on the tensor cores.  Returns the launches of a
     step and the step's numbers."""
@@ -1530,14 +1575,19 @@ def train_phase(torch, counters, title, cfg, want_params, want_launches,
     if extra is not None:
         for batch in batches:
             batch.update(extra(B))
+    # the float32 encoder's and cross-attention's calls, on their own routes
     cross = cfg.num_layers if cfg.cross_attention else 0
-    fwd_cuda, bwd_cuda = cfg.encoder_layers + 2 * cross, \
+    fwd_f32, bwd_f32 = cfg.encoder_layers + 2 * cross, \
         cfg.encoder_layers + cross
-    want_routes = {"tensor_core": want_launches["flash_attention"] - fwd_cuda,
-                   "split_k": 0, "cuda_core": fwd_cuda}
-    want_bwd_routes = {
-        "tensor_core": want_launches["flash_attention_bwd"] - bwd_cuda,
-        "cuda_core": bwd_cuda}
+    hd = cfg.resolved_head_dim
+    want_routes = fa_routes(
+        tensor_core=want_launches["flash_attention"] - fwd_f32)
+    want_bwd_routes = {**dict.fromkeys(fa_bwd.ROUTES, 0), "tensor_core":
+                       want_launches["flash_attention_bwd"] - bwd_f32}
+    if fwd_f32:
+        want_routes[fa_kernel.route(torch.float32, torch.float32, hd,
+                                    S)] += fwd_f32
+        want_bwd_routes[fa_bwd.route(torch.float32, hd)] += bwd_f32
     step_s, launches, routes, bwd_routes = [], None, None, None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
@@ -1724,9 +1774,9 @@ ZERO_LEAF_TOL = 1e-4
 INT8_RTOL, INT8_ATOL_RMS = 0.1, 0.15
 
 
-def sq_sk_bwd_phase(torch, mem_rate, bf16_rate):
-    """Phase 23: ``flash_bwd_phase`` at FA_BWD_SQ_SK_SHAPES, then both
-    routes at Whisper's cross-attention train shape with keys 1 % apart (a
+def sq_sk_bwd_phase(torch, mem_rate, bf16_rate, f32_rate):
+    """Phase 23: ``flash_bwd_phase`` at FA_BWD_SQ_SK_SHAPES (Whisper's
+    shapes timed in bf16 and float32), then each type's route at Whisper's cross-attention train shape with keys 1 % apart (a
     deep encoder's frames: each row's attention spread evenly, so dS = P
     (dP - D) is a difference of near-equal numbers) against torch autograd
     through the plain forward in float32 on the same inputs, at
@@ -1737,7 +1787,8 @@ def sq_sk_bwd_phase(torch, mem_rate, bf16_rate):
     entry = flash_bwd_phase(
         torch, mem_rate, bf16_rate, "23. flash_attention backward where "
         "queries and keys differ in number", FA_BWD_SQ_SK_SHAPES,
-        FA_BWD_SQ_SK_TIMED, seed=23)
+        FA_BWD_SQ_SK_TIMED, seed=23, f32_rate=f32_rate,
+        timed_dtypes=(BF16, F32))
     B, Sq, Sk, H, KV, hd, causal, window = WHISPER_CROSS_TRAIN
     gen = torch.Generator(device="cuda").manual_seed(231)
     worst = 0.0
@@ -1779,7 +1830,7 @@ def slice_phases(torch, counters, rates, smi, t_start, only=None):
             "Whisper-medium's and LLaVA-NeXT's shapes",
             [shape for _, shape in FA_NEW_TIMED], FA_NEW_TIMED, seed=22,
             f32_rate=f32_rate)[0],
-        "23": lambda: sq_sk_bwd_phase(torch, mem_rate, bf16_rate),
+        "23": lambda: sq_sk_bwd_phase(torch, mem_rate, bf16_rate, f32_rate),
         "24": lambda: encdec_serve_phase(
             torch, counters, "24. serving Whisper-medium at full width and "
             "depth", get_arch("whisper-medium"), 812_935_168),
@@ -1806,20 +1857,25 @@ def encdec_serve_phase(torch, counters, title, cfg, want_params):
     32 tokens, temperature 1) with every counter set to 0 just before and
     read just after, flash's routes derived from the configuration: at
     prefill one tensor-core call for each decoder self-attention and one
-    CUDA-core call for each encoder layer and each cross-attention (the
-    float32 encoder, as the reference's promotion runs it, and its float32
-    K/V), at each of the 31 decode steps one split-K call for each decoder
+    call on the route ``route`` names for float32 (3xTF32 at hd 64) for
+    each encoder layer and each cross-attention (the float32 encoder, as
+    the reference's promotion runs it, and its float32 K/V), at each of the 31 decode steps one split-K call for each decoder
     attention (the cross K/V cached as bf16); then the reduced
     configuration served greedily on the card and on the CPU route (phase
-    9's check).  Returns the launches, the routes and the serving
-    numbers."""
+    9's check); with an encoder, the same ``serve()`` again (warm) and
+    the float32 encoder against the CPU route's.  Returns the launches,
+    the routes and the serving numbers."""
     from repro_torch.configs import get_arch
     print(f"== {title}")
     P, G = 32, 32
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     cross = cfg.num_layers if cfg.cross_attention else 0
     attn = cfg.num_layers + cross
-    routes = {"tensor_core": cfg.num_layers, "split_k": attn * (G - 1),
-              "cuda_core": cfg.encoder_layers + cross}
+    routes = fa_routes(tensor_core=cfg.num_layers, split_k=attn * (G - 1))
+    if cfg.encoder_layers + cross:
+        routes[fa_kernel.route(torch.float32, torch.float32,
+                               cfg.resolved_head_dim, P)] += \
+            cfg.encoder_layers + cross
     n_params = meta_tree_size(cfg, cfg.vision_tokens + P + G)
     print(f"  parameter tree {n_params:,} (ArchConfig.num_params() "
           f"{cfg.num_params():,}); prompt {P} after {cfg.vision_tokens} image "
@@ -1832,6 +1888,19 @@ def encdec_serve_phase(torch, counters, title, cfg, want_params):
          "ssm_scan": 0, "flash_attention_bwd": 0, "ssm_scan_bwd": 0},
         routes, f"the {cfg.name} serving path", P=P)
     if cfg.encoder_layers:
+        # the same serve() again: the first call's prefill carries the
+        # process's set-up (library loads, the first float32 products),
+        # 369-846 ms in four runs of phase 24 alone on an H100
+        from repro_torch.launch.serve import serve
+        warm = serve(cfg, batch=4, prompt_len=P, gen=G, temperature=1.0,
+                     device="cuda")
+        numbers["warm"] = {"prefill_ms": warm.prefill_ms,
+                           "decode_ms_per_step": warm.decode_ms_per_step,
+                           "tokens_per_s": warm.tokens_per_s}
+        print(f"  again (warm): prefill_ms {warm.prefill_ms:.3f}  "
+              f"decode_ms_per_step {warm.decode_ms_per_step:.3f}  "
+              f"tokens_per_s {warm.tokens_per_s:.1f}")
+        del warm
         numbers["encoder_card_vs_cpu"] = encoder_precision(torch, cfg)
     card_vs_cpu(torch, f"{cfg.name} reduced", get_arch(cfg.name).reduced())
     return launches, got, numbers
@@ -1877,9 +1946,9 @@ def encoder_precision(torch, cfg):
           f"routes {routes}")
     check(got.dtype == want.dtype == torch.float32,
           f"the encoder's output is {got.dtype} / {want.dtype}, not float32")
-    check(routes == {"tensor_core": 0, "split_k": 0,
-                     "cuda_core": cfg.encoder_layers},
-          f"the float32 encoder left the CUDA-core route: {routes}")
+    want = fa_routes(tf32x3=cfg.encoder_layers)
+    check(routes == want, f"the float32 encoder took routes {routes}, "
+          f"expected {want}")
     check(math.isfinite(rms) and rms <= ENC_CARD_CPU_RMS_TOL,
           "the card's float32 encoder is further from the CPU route's than "
           "expected")
@@ -1895,7 +1964,7 @@ def whisper_train_phase(torch, counters):
     forwards, 2 x 24 decoder attentions run twice (the groups' activation
     checkpointing), 72 backwards; the decoder's self-attention on the
     tensor cores, the float32 encoder and cross-attention (K/V from the
-    float32 encoder output, as the reference) on the CUDA cores; the plain
+    float32 encoder output, as the reference) on the 3xTF32 route; the plain
     comparison on the 448 tokens and 750 of the frames.  Then 25b."""
     from repro_torch import random
     from repro_torch.configs import get_arch
@@ -1963,8 +2032,8 @@ def int8_phase(torch, counters):
         name = "int8" if quantized else "bf16"
         print(f"  {name} cache: {nbytes:,} bytes; prefill {prefill_ms:.3f} ms, "
               f"decode {decode_ms:.3f} ms a step; launches {launches}")
-        check_routes(routes, {"tensor_core": cfg.num_layers,
-                              "split_k": cfg.num_layers * G, "cuda_core": 0},
+        check_routes(routes, fa_routes(tensor_core=cfg.num_layers,
+                                       split_k=cfg.num_layers * G),
                      f"the {name} cache's prefill and decode")
         runs[name] = {"logits": torch.stack(outs), "cache_bytes": nbytes,
                       "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
@@ -2071,8 +2140,7 @@ def xlstm_serve_phase(torch, counters):
           f"expected {XLSTM_TREE}")
     launches, _, numbers = serve_checked(
         torch, counters, cfg, NO_LAUNCHES,
-        dict.fromkeys(("tensor_core", "split_k", "cuda_core"), 0),
-        "the xLSTM-1.3B serving path")
+        fa_routes(), "the xLSTM-1.3B serving path")
     numbers["cache_bytes"] = cache_bytes
     numbers["layer_prefill_ms"] = xlstm_layer_times(torch, cfg)
     numbers["decode_vs_forward"] = xlstm_decode_phase(torch, cfg)
@@ -3861,11 +3929,15 @@ def main() -> int:
                   lambda: fa_kernel.build(fa_kernel.SOURCE),
               "flash_attention, tensor cores and split-K":
                   lambda: fa_kernel.build(fa_kernel.HOPPER_SOURCE),
+              "flash_attention, 3xTF32":
+                  lambda: fa_kernel.build(fa_kernel.TF32_SOURCE),
               "ssm_scan": ssm_kernel.build,
               "flash_attention backward, CUDA cores":
                   lambda: fa_bwd_kernel.build(fa_bwd_kernel.SOURCE),
               "flash_attention backward, tensor cores":
                   lambda: fa_bwd_kernel.build(fa_bwd_kernel.HOPPER_SOURCE),
+              "flash_attention backward, 3xTF32":
+                  lambda: fa_bwd_kernel.build(fa_bwd_kernel.TF32_SOURCE),
               "ssm_scan backward": ssm_bwd_kernel.build}
 
     def timed_build(fn):
@@ -3976,6 +4048,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention_hopper.cu",
         "sources": {"tensor_core": "src/repro_torch/csrc/flash_attention_hopper.cu",
                     "split_k": "src/repro_torch/csrc/flash_attention_hopper.cu",
+                    "tf32x3": "src/repro_torch/csrc/flash_attention_tf32.cu",
                     "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "launches": (serve_launches + sum(jamba_routes.values())
@@ -4020,6 +4093,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
         "sources": {
             "tensor_core": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
+            "tf32x3": "src/repro_torch/csrc/flash_attention_bwd_tf32.cu",
             "cuda_core": "src/repro_torch/csrc/flash_attention_bwd.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "differentiates": "src/repro/models/attention.py:224 (the train "

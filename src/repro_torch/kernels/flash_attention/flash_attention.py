@@ -1,5 +1,5 @@
 """Flash attention (GQA, causal, sliding window, per-row valid length) as
-hand-written CUDA kernels for Hopper, on three routes.
+hand-written CUDA kernels for Hopper, on four routes.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  ``route`` picks the route from the types, the
@@ -11,8 +11,13 @@ head dim and the number of queries:
 - ``split_k``: bf16 q and K/V, hd 64 or 128, at most 16 queries (decode):
   the cache split into chunks over the grid, then a merge, in the same
   source;
-- ``cuda_core``: everything else the kernels take (float32 q or K/V, hd 32
-  or 80, or strides TMA cannot read): fp32 on the CUDA cores,
+- ``tf32x3``: float32 q and K/V, hd 64, more than 16 queries, operands TMA
+  can read (Whisper's float32 encoder and cross-attention at prefill):
+  wgmma on split float32 operands, three TF32 products for each,
+  ``repro_torch/csrc/flash_attention_tf32.cu``;
+- ``cuda_core``: everything else the kernels take (float32 at hd 32, 80 or
+  128, float32 decode, float32 q on a bf16 cache, hd 32 or 80, or strides
+  TMA cannot read): fp32 on the CUDA cores,
   ``repro_torch/csrc/flash_attention.cu``.
 
 Each source states its bound and design.  The kernels are compiled with
@@ -33,13 +38,15 @@ from repro_torch.kernels import nvcc
 
 SOURCE = nvcc.SOURCE_DIR / "flash_attention.cu"
 HOPPER_SOURCE = nvcc.SOURCE_DIR / "flash_attention_hopper.cu"
+TF32_SOURCE = nvcc.SOURCE_DIR / "flash_attention_tf32.cu"
 HEAD_DIMS = (32, 64, 80, 128)
 HOPPER_HEAD_DIMS = (64, 128)
+TF32_HEAD_DIMS = (64,)
 SPLIT_K_MAX_QUERIES = 16
 # (q, k/v) types the kernels take; the output is in q's type
 DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16))
-ROUTES = ("tensor_core", "split_k", "cuda_core")
+ROUTES = ("tensor_core", "split_k", "tf32x3", "cuda_core")
 MAX_BATCH = 65535                 # a grid dimension
 # The split-K decode's chunks: whole tiles of 64 keys, at least 3 of them (a
 # block's fixed costs, its first load's latency and the combine of its
@@ -53,12 +60,14 @@ launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
 _lib = None
 _hopper_lib = None
+_tf32_lib = None
 _sm_counts = {}
 
 
 def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int, Sq: int,
           *, tma_ok: bool = True) -> str:
-    """The route a call takes: "tensor_core", "split_k" or "cuda_core".
+    """The route a call takes: "tensor_core", "split_k", "tf32x3" or
+    "cuda_core".
     ``tma_ok``: q, k and v have 16-byte-aligned bases and strides (TMA's
     rule).  Raises on a head dim or type pair no kernel takes."""
     if hd not in HEAD_DIMS:
@@ -71,6 +80,9 @@ def route(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int, Sq: int,
             return "split_k"
         if tma_ok:
             return "tensor_core"
+    if (q_dtype == kv_dtype == torch.float32 and hd in TF32_HEAD_DIMS
+            and Sq > SPLIT_K_MAX_QUERIES and tma_ok):
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -96,8 +108,8 @@ def _sm_count(device: torch.device) -> int:
 
 
 def build(source: Path = SOURCE) -> Path:
-    """Compile ``source`` (SOURCE or HOPPER_SOURCE) unless its library is
-    already built; returns the library's path."""
+    """Compile ``source`` (SOURCE, HOPPER_SOURCE or TF32_SOURCE) unless its
+    library is already built; returns the library's path."""
     return nvcc.build(source)
 
 
@@ -127,6 +139,19 @@ def _load_hopper():
         lib.flash_attention_split_k_fwd.restype = ctypes.c_int
         _hopper_lib = lib
     return _hopper_lib
+
+
+def _load_tf32():
+    global _tf32_lib
+    if _tf32_lib is None:
+        lib = ctypes.CDLL(str(build(TF32_SOURCE)))
+        i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        fn = lib.flash_attention_tf32_fwd
+        fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 9
+                       + [i32, i32, i64, ctypes.c_float, i32, ptr])
+        fn.restype = ctypes.c_int
+        _tf32_lib = lib
+    return _tf32_lib
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -189,8 +214,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
              float(hd ** -0.5))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    if which == "tensor_core":
-        fn = _load_hopper().flash_attention_tc_fwd
+    if which in ("tensor_core", "tf32x3"):
+        fn = (_load_hopper().flash_attention_tc_fwd if which == "tensor_core"
+              else _load_tf32().flash_attention_tf32_fwd)
         args = (*ptrs, kv_ptr, kv_all, B, Sq, Sk, H, KV, hd, *strides, *masks,
                 _sm_count(q.device))
     elif which == "split_k":

@@ -1,5 +1,5 @@
 """The gradient of flash attention (GQA, causal, sliding window) as
-hand-written CUDA kernels for Hopper, on two routes.
+hand-written CUDA kernels for Hopper, on three routes.
 
 The backward of ``ops.flash_attention`` on a CUDA tensor: dq, dk and dv
 from q, k, v and the output's gradient, for queries whose positions start
@@ -8,8 +8,13 @@ route from the type, the head dim and the operands' alignment:
 
 - ``tensor_core``: bf16, hd 64 or 128, every operand 16-byte aligned (TMA):
   wgmma and TMA, ``repro_torch/csrc/flash_attention_bwd_hopper.cu``;
-- ``cuda_core``: everything else the kernels take (float32, hd 32 or 80):
-  fp32 on the CUDA cores, ``repro_torch/csrc/flash_attention_bwd.cu``.
+- ``tf32x3``: float32, hd 64, every operand 16-byte aligned (Whisper's
+  float32 encoder and cross-attention): wgmma on split float32 operands,
+  three TF32 products for each,
+  ``repro_torch/csrc/flash_attention_bwd_tf32.cu``;
+- ``cuda_core``: everything else the kernels take (float32 at hd 32, 80 or
+  128, hd 32 or 80, or a base TMA cannot read): fp32 on the CUDA cores,
+  ``repro_torch/csrc/flash_attention_bwd.cu``.
 
 Both split the gradient into a dq pass and a dk/dv pass and recompute the
 rows' log-sum-exp and D = rowsum(P dP) rather than have the forward write
@@ -30,13 +35,14 @@ import torch
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, HOPPER_HEAD_DIMS, MAX_BATCH)
+    HEAD_DIMS, HOPPER_HEAD_DIMS, MAX_BATCH, TF32_HEAD_DIMS)
 
 SOURCE = nvcc.SOURCE_DIR / "flash_attention_bwd.cu"
 HOPPER_SOURCE = nvcc.SOURCE_DIR / "flash_attention_bwd_hopper.cu"
+TF32_SOURCE = nvcc.SOURCE_DIR / "flash_attention_bwd_tf32.cu"
 DTYPES = (torch.float32, torch.bfloat16)
-ROUTES = ("tensor_core", "cuda_core")
-TC_QUERY_TILE = 128               # the tensor-core dq kernel's query rows
+ROUTES = ("tensor_core", "tf32x3", "cuda_core")
+TC_QUERY_TILE = 128               # the wgmma dq kernels' query rows
 
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
@@ -44,31 +50,34 @@ _lib = {}                         # {route: its entry point}, at first use
 
 
 def route(dtype: torch.dtype, hd: int, *, aligned: bool = True) -> str:
-    """The route a call takes: "tensor_core" or "cuda_core".  ``aligned``:
-    every operand's base lies on 16 bytes (TMA's rule; the operands are
-    contiguous, so their strides do).  Raises on a head dim or type no
-    kernel takes."""
+    """The route a call takes: "tensor_core", "tf32x3" or "cuda_core".
+    ``aligned``: every operand's base lies on 16 bytes (TMA's rule; the
+    operands are contiguous, so their strides do).  Raises on a head dim or
+    type no kernel takes."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the kernels take {HEAD_DIMS}")
     if dtype not in DTYPES:
         raise TypeError(f"the backward takes {DTYPES}, got {dtype}")
     if dtype == torch.bfloat16 and hd in HOPPER_HEAD_DIMS and aligned:
         return "tensor_core"
+    if dtype == torch.float32 and hd in TF32_HEAD_DIMS and aligned:
+        return "tf32x3"
     return "cuda_core"
 
 
 def build(source: Path = SOURCE) -> Path:
-    """Compile ``source`` (SOURCE or HOPPER_SOURCE) unless its library is
-    already built; returns the library's path."""
+    """Compile ``source`` (SOURCE, HOPPER_SOURCE or TF32_SOURCE) unless its
+    library is already built; returns the library's path."""
     return nvcc.build(source)
 
 
 def _load(which: str):
     if which not in _lib:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        if which == "tensor_core":
-            lib = ctypes.CDLL(str(build(HOPPER_SOURCE)))
-            fn = lib.flash_attention_tc_bwd
+        if which in ("tensor_core", "tf32x3"):
+            tc = which == "tensor_core"
+            lib = ctypes.CDLL(str(build(HOPPER_SOURCE if tc else TF32_SOURCE)))
+            fn = lib.flash_attention_tc_bwd if tc else lib.flash_attention_tf32_bwd
             fn.argtypes = [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr]
         else:
             lib = ctypes.CDLL(str(build(SOURCE)))
@@ -117,7 +126,7 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     masks = (int(causal), 0 if window is None else int(window))
     fn = _load(which)
-    if which == "tensor_core":
+    if which in ("tensor_core", "tf32x3"):
         # the rows' lse and D, padded to whole query tiles
         pad = -(-Sq // TC_QUERY_TILE) * TC_QUERY_TILE
         stats = torch.empty((2, B, H, pad), dtype=torch.float32,

@@ -145,9 +145,15 @@ BF, F32T = torch.bfloat16, torch.float32
     (BF, BF, 64, 1, False, "split_k"),           # split-K reads any stride
     (BF, BF, 32, 1024, True, "cuda_core"),
     (BF, BF, 80, 1, True, "cuda_core"),
+    (F32T, F32T, 64, 1500, True, "tf32x3"),      # Whisper's float32 encoder
+    (F32T, F32T, 64, 32, True, "tf32x3"),        # and its cross prefill
+    (F32T, F32T, 64, 17, False, "cuda_core"),    # strides TMA cannot read
     (F32T, F32T, 128, 1024, True, "cuda_core"),
+    (F32T, F32T, 32, 1024, True, "cuda_core"),
+    (F32T, F32T, 64, 16, True, "cuda_core"),     # float32 decode
     (F32T, F32T, 64, 1, True, "cuda_core"),
     (F32T, BF, 128, 1, True, "cuda_core"),       # float32 q on a bf16 cache
+    (F32T, BF, 64, 1500, True, "cuda_core"),
 ])
 def test_route_by_types_head_dim_and_queries(qdt, kvdt, hd, Sq, tma_ok, want):
     from repro_torch.kernels.flash_attention import flash_attention as fk
@@ -169,7 +175,9 @@ def test_route_raises_on_what_no_kernel_takes(qdt, kvdt, hd, err):
     (BF, 128, True, "tensor_core"), (BF, 64, True, "tensor_core"),
     (BF, 128, False, "cuda_core"),              # a base TMA cannot read
     (BF, 32, True, "cuda_core"), (BF, 80, True, "cuda_core"),
-    (F32T, 128, True, "cuda_core"), (F32T, 64, True, "cuda_core"),
+    (F32T, 64, True, "tf32x3"),                 # Whisper's float32 encoder
+    (F32T, 64, False, "cuda_core"),
+    (F32T, 128, True, "cuda_core"), (F32T, 80, True, "cuda_core"),
     (F32T, 32, False, "cuda_core"),
 ])
 def test_backward_route_by_type_head_dim_and_alignment(dtype, hd, aligned,
@@ -194,7 +202,7 @@ def test_backward_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         fb.flash_attention_bwd_cuda(q, q, q, q)
     assert fb.launches == 0 and fb.route_launches == {
-        "tensor_core": 0, "cuda_core": 0}
+        "tensor_core": 0, "tf32x3": 0, "cuda_core": 0}
 
 
 H100_SMS = 132

@@ -259,16 +259,19 @@ def test_flash_attention_split_k_reads_the_windowed_decode_views():
 
 @pytest.mark.cuda
 def test_flash_attention_routes_the_other_calls_to_the_cuda_cores():
-    """float32, hd 32 and 80, and bf16 prefill whose strides TMA cannot
-    read stay on the CUDA-core kernel."""
+    """float32 at hd 128, float32 decode, float32 q on a bf16 cache, hd 32
+    and 80, and bf16 prefill whose strides TMA cannot read stay on the
+    CUDA-core kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     bf = torch.bfloat16
     q, k, v = _qkv(1, 40, 40, 2, 2, 64, bf, bf, 3)
     k_odd = torch.zeros(1, 40, 2, 65, dtype=bf, device="cuda")[..., :64]
     k_odd.copy_(k)
-    calls = [(q, k_odd, v), (q.float(), k.float(), v.float()),
-             (q.float(), k, v)] + [
+    f32 = torch.float32
+    calls = [(q, k_odd, v), (q.float(), k, v),
+             _qkv(1, 40, 40, 2, 2, 128, f32, f32, 128),
+             _qkv(1, 16, 40, 2, 2, 64, f32, f32, 16)] + [
         _qkv(1, 40, 40, 2, 2, hd, bf, bf, hd) for hd in (32, 80)]
     for qq, kk, vv in calls:
         before = dict(fa_kernel.route_launches)
@@ -280,6 +283,48 @@ def test_flash_attention_routes_the_other_calls_to_the_cuda_cores():
         want = fa_ref.flash_attention_ref(qq, kk, vv, causal=True)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+# The 3xTF32 route: float32 q and K/V at hd 64, more than 16 queries,
+# strides TMA can read.  B, Sq, Sk, H, KV, hd, causal, window, q_offset,
+# kv_len: Sq and Sk of 17, 40, 200 and 1500 (no multiple of the 128-query
+# or 64-key tiles), causal with q_offset, windows, an int and a (B,)
+# kv_len, rep 1 to 8, fewer and more queries than keys, Whisper-medium's
+# encoder and cross prefill, and the float32 prefill that took the
+# CUDA-core route before this one.  Tolerance FA_DTYPES' float32 2e-5.
+TF32_CASES = [
+    (2, 17, 200, 4, 2, 64, True, None, 183, None),
+    (2, 200, 200, 4, 4, 64, True, None, 0, None),
+    (1, 200, 1500, 8, 1, 64, False, None, 0, 1234),
+    (3, 40, 200, 8, 4, 64, True, 96, 160, [200, 190, 170]),
+    (2, 300, 400, 4, 4, 64, True, 64, 100, [380, 340]),
+    (1, 1500, 1500, 8, 8, 64, True, 256, 0, None),
+    (2, 1500, 17, 4, 2, 64, False, None, 0, None),
+    (4, 1500, 1500, 16, 16, 64, False, None, 0, None),
+    (4, 32, 1500, 16, 16, 64, False, None, 0, None),
+    (1, 40, 40, 2, 2, 64, True, None, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_flash_attention_tf32x3_route(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset, kv_len = case
+    qdt, kvdt, tol = FA_DTYPES["float32"]
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, qdt, kvdt, sum(case[:6]))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=_lens(kv_len))
+    before = dict(fa_kernel.route_launches)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {r: fa_kernel.route_launches[r] - before[r]
+            for r in fa_kernel.ROUTES} == {r: int(r == "tf32x3")
+                                           for r in fa_kernel.ROUTES}
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 # B, S, D, N, with_h0: the reference's kernel cases (tests/test_kernels.py),
@@ -684,9 +729,8 @@ def test_flash_attention_backward_tensor_core_route(B, S, H, KV, hd, causal,
     before = dict(fa_bwd.route_launches)
     got = fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
     torch.cuda.synchronize()
-    assert fa_bwd.route_launches == {
-        "tensor_core": before["tensor_core"] + 1,
-        "cuda_core": before["cuda_core"]}
+    assert fa_bwd.route_launches == {**before,
+                                     "tensor_core": before["tensor_core"] + 1}
     lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
     for g, w in zip(got, want):
@@ -696,7 +740,8 @@ def test_flash_attention_backward_tensor_core_route(B, S, H, KV, hd, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 128, "tensor_core"), ("bfloat16", 64, "tensor_core"),
-    ("bfloat16", 80, "cuda_core"), ("float32", 128, "cuda_core")])
+    ("bfloat16", 80, "cuda_core"), ("float32", 128, "cuda_core"),
+    ("float32", 64, "tf32x3")])
 def test_flash_attention_backward_routes_by_type_and_head_dim(dtype, hd,
                                                               route):
     if not torch.cuda.is_available():
@@ -731,13 +776,53 @@ def test_flash_attention_backward_kernel_is_deterministic(B, S, H, KV, hd,
         assert torch.equal(a, b)
 
 
+# The 3xTF32 route of the backward (float32, hd 64): ragged sequences (not
+# a multiple of the 32-, 64- and 128-row tiles), causal or not, windows
+# (one of a single key), rep 1 to 8, fewer and more queries than keys,
+# Whisper's cross-attention train shape.  B, Sq, Sk, H, KV, causal, window.
+FA_BWD_TF32_CASES = [
+    (1, 200, 200, 4, 4, True, None), (3, 77, 77, 8, 1, False, None),
+    (1, 1000, 1000, 16, 2, True, 300), (1, 129, 129, 8, 2, True, 1),
+    (2, 333, 200, 4, 4, True, None), (3, 77, 1000, 8, 2, False, None),
+    (1, 1000, 77, 8, 1, False, None), (2, 300, 500, 4, 1, True, 100),
+    (4, 448, 1500, 16, 16, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", FA_BWD_TF32_CASES)
+def test_flash_attention_backward_tf32x3_route(B, Sq, Sk, H, KV, causal,
+                                               window):
+    """Against the plain gradient at FA_BWD_TOL's float32 limit, on the
+    3xTF32 route, two launches equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tdt, tol = FA_BWD_TOL["float32"]
+    q, k, v = _qkv(B, Sq, Sk, H, KV, 64, tdt, tdt, Sq * 5 + Sk + H)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(Sq)
+                     ).to("cuda", tdt)
+    kw = dict(causal=causal, window=window)
+    before = dict(fa_bwd.route_launches)
+    got = fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
+    again = fa_bwd.flash_attention_bwd_cuda(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fa_bwd.route_launches.items()} == {
+        r: 2 * int(r == "tf32x3") for r in fa_bwd.ROUTES}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
+    for g, w in zip(got, want):
+        _close_to_largest(g, w, tol)
+
+
 # The backward where queries and keys differ in number (cross-attention;
 # queries from position 0, so under a causal mask query i sees keys <= i):
 # B, Sq, Sk, H, KV, hd, causal, window.  Whisper-medium's cross-attention
 # at its train shape (448 decoder tokens on 1500 frames) and its encoder;
 # fewer and more queries than keys, causal or not, rep 1, 4 and 8, a
-# window, hd 64, 128 and 80; float32 and hd 80 on the CUDA cores, bf16 at
-# hd 64 and 128 on the tensor cores.
+# window, hd 64, 128 and 80; bf16 at hd 64 and 128 on the tensor cores,
+# float32 at hd 64 on the 3xTF32 route, float32 at hd 128 and hd 80 on the
+# CUDA cores.
 FA_BWD_SQ_SK_CASES = [
     (4, 448, 1500, 16, 16, 64, False, None),
     (2, 1500, 1500, 16, 16, 64, False, None),
@@ -769,6 +854,7 @@ def test_flash_attention_backward_at_unequal_lengths(B, Sq, Sk, H, KV, hd,
     assert {r: n - before[r] for r, n in fa_bwd.route_launches.items()} == {
         r: int(r == route) for r in fa_bwd.ROUTES}
     assert (route == "tensor_core") == (tdt == torch.bfloat16 and hd != 80)
+    assert (route == "tf32x3") == (tdt == torch.float32 and hd == 64)
     lse = fa_ref.flash_attention_lse_ref(q, k, **kw)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, do, lse, **kw)
     for g, w in zip(got, want):
@@ -974,7 +1060,7 @@ def test_server_slot_past_the_cache_end_on_the_card(dtype):
         # and 13 decode steps
         assert fa_kernel.route_launches == {"tensor_core": 2,
                                             "split_k": 2 + 2 * 13,
-                                            "cuda_core": 0}
+                                            "tf32x3": 0, "cuda_core": 0}
     else:
         cpu, cpu_stats, _ = _serve("olmo-1b", {}, [20, 3], [4, 14], "cpu",
                                    max_len=24, dtype=tdt)

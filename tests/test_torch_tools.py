@@ -29,6 +29,8 @@ def _run(argv, cwd):
     ["tools/run_phase.py", "35"],
     ["tools/ssm_scan_bwd_ablation.py"],
     ["tools/flash_attention_bwd_ablation.py"],
+    ["tools/flash_attention_tf32_ablation.py"],
+    ["tools/run_phase.py", "whisper"],
     ["tools/flash_bwd_accuracy.py"], ["tools/flash_bwd_accuracy.py", "model"],
     ["tools/conv_wgrad_layouts.py"]])
 def test_tools_fail_without_a_card(argv):

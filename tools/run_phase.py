@@ -6,6 +6,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 10 [TREE]      # ssm_scan (phase 10)
     python3 tools/run_phase.py 7 [TREE]       # flash_attention (phase 7)
     python3 tools/run_phase.py seq [TREE]     # sequential FL rounds
+    python3 tools/run_phase.py whisper [TREE] # Whisper-medium served 3 times
     python3 tools/run_phase.py 3b             # gradient against float64
     python3 tools/run_phase.py 4c [TREE]      # fused rounds, CUDA graphs
     python3 tools/run_phase.py 20 [TREE]      # a train step (or 19)
@@ -27,7 +28,12 @@ the two trees' packages share a name.
 it runs ``FLConfig(bwo_kernel=True, device="cuda", engine="sequential")``
 through ``build_experiment`` for 4 rounds (the first warms up) and times
 one client's local SGD (2 epochs of 10 steps), so a tree from before the
-batched engine can be compared.  ``3b`` runs this tree's phase 3b under
+batched engine can be compared.  ``whisper`` needs nothing of it either:
+it serves Whisper-medium three times in one process through the tree's
+``serve()`` (batch 4, prompt 32, 32 tokens, 1500 zero frames) and prints
+each call's prefill and decode ms; the first carries the process's
+set-up (the kernels' builds, library loads), the other two are warm.
+``3b`` runs this tree's phase 3b under
 cuDNN's settings in turn (as set, ``benchmark``, ``deterministic``,
 disabled) and with TF32 allowed, which its limit must refuse.  ``4c``
 runs the tree's phase 4c: 10 full-width FedBWO rounds as two pipelined
@@ -71,7 +77,7 @@ def main() -> int:
     slice_phases = set(phase.split(",")) <= {"22", "23", "24", "25", "26",
                                              "27"}
     new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
-    if phase not in ("7", "10", "seq", "3b", "4c", "17", "18", "19",
+    if phase not in ("7", "10", "seq", "whisper", "3b", "4c", "17", "18", "19",
                      "20", "33", "34", "35") and not slice_phases \
             and not new_paths:
         print(__doc__, file=sys.stderr)
@@ -92,6 +98,8 @@ def main() -> int:
         _, times = cs.flash_phase(torch, mem, bf16)
     elif phase == "seq":
         times = sequential_rounds(torch)
+    elif phase == "whisper":
+        times = whisper_serve(torch)
     elif phase == "17":
         times = cs.flash_bwd_phase(torch, mem, bf16)["shapes"]
     elif phase == "18":
@@ -156,6 +164,23 @@ def main() -> int:
         times = grad_variants(torch, cs)
     print(json.dumps({"tree": str(tree), "phase": phase, "ms": times}))
     return 0
+
+
+def whisper_serve(torch):
+    """Whisper-medium's ``serve()`` three times in this process: each
+    call's prefill and decode ms a step (the first pays the set-up)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    cfg = get_arch("whisper-medium")
+    out = []
+    for i in range(3):
+        res = serve(cfg, batch=4, prompt_len=32, gen=32, temperature=1.0,
+                    device="cuda")
+        out.append({"prefill_ms": res.prefill_ms,
+                    "decode_ms_per_step": res.decode_ms_per_step})
+        print(f"  serve {i}: prefill {res.prefill_ms:.3f} ms, decode "
+              f"{res.decode_ms_per_step:.3f} ms a step")
+    return out
 
 
 def sequential_rounds(torch):
