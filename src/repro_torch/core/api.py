@@ -4,13 +4,15 @@
     result = build_experiment(cfg).run(verbose=True)
     print(result.summary())
 
-The port's counterpart of ``repro.core.api``, with two more fields:
+The port's counterpart of ``repro.core.api``, with three more fields:
 ``device`` ("cuda" unless the caller asks for "cpu"; a missing card
-raises) and ``bwo_kernel``, which routes every BWO generation through the
+raises), ``bwo_kernel``, which routes every BWO generation through the
 hand-written ``bwo_evolve`` kernel (the default stays the composed step,
-as in the reference).  ``build_experiment`` accepts ``task`` /
-``client_data`` / ``eval_data`` / ``hp`` overrides so one synthesized
-dataset (or a custom task) can serve many configs.
+as in the reference), and ``spans``, which stamps each fused block's
+device spans (``repro_torch.spans``; on by default).
+``build_experiment`` accepts ``task`` / ``client_data`` / ``eval_data`` /
+``hp`` overrides so one synthesized dataset (or a custom task) can serve
+many configs.
 """
 from __future__ import annotations
 
@@ -81,6 +83,9 @@ class FLConfig:
     # FedBWO: run each generation through the bwo_evolve kernel (the
     # reference's get_strategy(..., use_pallas=True) route)
     bwo_kernel: bool = False
+    # stamp each fused block's device spans (repro_torch.spans): round,
+    # sgd, fitness, threefry; off, no stamp is captured, same results
+    spans: bool = True
 
     def __post_init__(self):
         validate_engine(self.engine)
@@ -160,7 +165,8 @@ def build_experiment(cfg: FLConfig, *, task: Optional[Task] = None,
                     client_data, random.PRNGKey(cfg.server_seed, device),
                     engine=cfg.engine,
                     rounds_per_dispatch=cfg.rounds_per_dispatch,
-                    pipeline_blocks=cfg.pipeline_blocks)
+                    pipeline_blocks=cfg.pipeline_blocks,
+                    spans=cfg.spans)
     experiment = Experiment(cfg=cfg, server=server, eval_data=eval_data,
                             stop=cfg.stop_conditions())
     if mode != "off":

@@ -12,11 +12,12 @@ clients under ``torch.func.vmap`` (batched, ``repro_torch.core.engine``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import random, tree
+from repro_torch import random, spans, tree
 from repro_torch.convert import ravel_params
 from repro_torch.metaheuristics import Metaheuristic
 from repro_torch.metaheuristics.base import best_member
@@ -128,6 +129,7 @@ def make_fitness_fn(task: Task, data, unravel, n_batches: int,
     ``n_valid`` marks the valid-batch count of a padded dataset (see
     :func:`_fitness_slice`)."""
     batches = _fitness_slice(data, n_batches, n_valid)
+    samples = sum(tree.leaves(b)[0].shape[0] for b in batches)
 
     def one(flat):
         params = unravel(flat)
@@ -136,7 +138,9 @@ def make_fitness_fn(task: Task, data, unravel, n_batches: int,
 
     @torch.no_grad()
     def fit_fn(pops):
-        return torch.stack([one(pops[i]) for i in range(pops.shape[0])])
+        # a "fitness" span counting the samples forwarded
+        with spans.span("fitness", pops.shape[0] * samples):
+            return torch.stack([one(pops[i]) for i in range(pops.shape[0])])
 
     return fit_fn
 
@@ -177,7 +181,10 @@ def make_update(task: Task, hp: ClientHP,
 
     def update(global_params, data, mask, key):
         r_sgd, r_mh = random.split(key)
-        params = local_sgd(global_params, data, r_sgd, mask)
+        # an "sgd" span counting the samples trained
+        lead = tree.leaves(data)[0].shape[:2]
+        with spans.span("sgd", hp.local_epochs * math.prod(lead)):
+            params = local_sgd(global_params, data, r_sgd, mask)
         n_valid = None if mask is None else mask.to(torch.int64).sum()
 
         with torch.no_grad():

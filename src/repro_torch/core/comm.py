@@ -1,5 +1,5 @@
 # A copy of repro/core/comm.py (pure Python), kept here so the port imports
-# nothing of the JAX package.
+# nothing of the JAX package; BlockTiming's docstring is the port's own.
 """Communication-cost accounting (paper §IV-D, Eqs. 1-4).
 
 FedAvg uplink per round:  C * N * M          (Eq. 1 over T rounds)
@@ -72,15 +72,20 @@ def normalized_cost(t_x, n: int = None, m: int = None, t_avg: int = 30,
 class BlockTiming:
     """Host-side timing of one fused block (DESIGN.md §7).
 
-    ``dispatch_s`` is the time spent *enqueueing* the block (tracing +
-    compilation on the first block, near-zero after), ``sync_s`` the
-    time the host blocked in ``jax.device_get`` waiting for the block's
-    logs, ``process_s`` the host-side info-dict reconstruction + meter
-    bookkeeping, and ``total_s`` the dispatch->finish wall time.  Under
-    the double-buffered pipeline the next block executes while this
-    block's logs are processed, so steady-state ``sync_s`` absorbs the
-    device time the host could not hide — the overlap is observable as
-    ``sync_s`` shrinking relative to the serial driver's.
+    ``dispatch_s`` is the time spent *enqueueing* the block: on the card
+    the first block holds the engine's eager warm-up round and the
+    capture of the block's CUDA graph (the ``warmup`` and ``capture``
+    host spans of ``repro_torch.spans``), and every later block of that
+    shape only a graph replay and the copies around it.  ``sync_s`` is
+    the time the host waited for the block's logs: their one
+    device->host copy, made on the server's fetch stream once the block
+    has run.  ``process_s`` is the host-side info-dict reconstruction,
+    meter bookkeeping and span decoding, and ``total_s`` the
+    dispatch->finish wall time.  Under the double-buffered pipeline the
+    next block executes while this block's logs are processed, so
+    steady-state ``sync_s`` absorbs the device time the host could not
+    hide — the overlap is observable as ``sync_s`` shrinking relative to
+    the serial loop's.
     """
     n_rounds: int
     dispatch_s: float

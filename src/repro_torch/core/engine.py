@@ -37,6 +37,7 @@ The mesh schedules are here too: :func:`make_sharded_fedx_round` and
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -44,7 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import random, tree
+from repro_torch import random, spans as spanlog, tree
 from repro_torch.analysis.walker import loss_uses_conv
 from repro_torch.convert import ravel_params
 from repro_torch.core.client import (ClientHP, Task, make_client_update,
@@ -150,10 +151,13 @@ def _tree_where(pred, a, b):
 
 def _vmap_clients(update, global_params, data, mask, keys):
     """``update`` once for all clients: vmapped over the client axis of
-    data, mask (when the data are padded) and keys."""
+    data, mask (when the data are padded) and keys.  The spans opened
+    inside are one for all clients: their per-client counts are
+    multiplied by the client count."""
     in_dims = (None, 0, None if mask is None else 0, 0)
-    return torch.func.vmap(update, in_dims=in_dims)(global_params, data,
-                                                    mask, keys)
+    with spanlog.batched(keys.shape[0]):
+        return torch.func.vmap(update, in_dims=in_dims)(global_params, data,
+                                                        mask, keys)
 
 
 def _row(data, mask, keys, k):
@@ -253,7 +257,8 @@ def eval_due(n_rounds: int, eval_every: int, round_offset: int) -> tuple:
 
 def make_fused_rounds(task: Task, strategy, hp: ClientHP,
                       rounds_per_dispatch: int, *, n_clients: int, device,
-                      vectorize: str = "auto", eval_every: int = 0):
+                      vectorize: str = "auto", eval_every: int = 0,
+                      spans: bool = True):
     """Fuse ``rounds_per_dispatch`` FL rounds into one block.
 
     Returns ``block_fn(global_params, rng, data, mask, eval_batch,
@@ -265,7 +270,13 @@ def make_fused_rounds(task: Task, strategy, hp: ClientHP,
     * plus ``{"eval_loss": (R,), "eval_acc": (R,)}`` when ``eval_every >
       0`` and an ``eval_batch`` is passed: ``task.loss_fn`` on the
       held-out batch on the rounds :func:`eval_due` names, NaN on the
-      others.
+      others;
+    * plus ``{"spans": (2 x stamps,) int32}`` with ``spans`` on: the
+      block's device span stamps (:mod:`repro_torch.spans`), one
+      ``round`` span a round around its key split, client update, server
+      step and evaluation, the ``sgd``, ``fitness`` and ``threefry`` spans
+      inside.  ``block_fn.span_schema`` holds the schema of its last call
+      (None with ``spans`` off, which stamps nothing).
 
     Each round derives its keys on the device exactly as
     ``Server.run_round`` does, ``random.split(rng, n_clients + 2) ->
@@ -297,32 +308,40 @@ def make_fused_rounds(task: Task, strategy, hp: ClientHP,
         due = eval_due(n_rounds,
                        eval_every if eval_batch is not None else 0,
                        int(round_offset))  # flcheck: ok (a host int)
-        params, logs = global_params, []
-        for i in range(n_rounds):
-            # Server.run_round's key schedule, derived on the device
-            keys = random.split(rng, n_clients + 2)
-            rng, sel_key, ckeys = keys[0], keys[1], keys[2:]
-            if is_fedx:
-                params, scores, best = round_fn(params, data, mask, ckeys)
-                log = {"scores": scores, "best": best}
-            else:
-                params, scores, sel = _fedavg_participants(
-                    round_fn, params, data, mask, sel_key, ckeys,
-                    n_clients, m)
-                log = {"scores": scores, "participants": sel}
-            if any(due):
-                if due[i]:
-                    with torch.no_grad():
-                        loss, acc = task.loss_fn(params, eval_batch)
-                    loss, acc = loss.float(), acc.float()
-                else:
-                    loss = acc = torch.full((), float("nan"),
-                                            device=rng.device)
-                log["eval_loss"], log["eval_acc"] = loss, acc
-            logs.append(log)
-        return params, rng, {k: torch.stack([log[k] for log in logs])
-                             for k in logs[0]}
+        recording = (spanlog.recording(rng.device) if spans
+                     else contextlib.nullcontext())
+        with recording as rec:
+            params, logs = global_params, []
+            for i in range(n_rounds):
+                with spanlog.span("round", round=i):
+                    # Server.run_round's key schedule, derived on the device
+                    keys = random.split(rng, n_clients + 2)
+                    rng, sel_key, ckeys = keys[0], keys[1], keys[2:]
+                    if is_fedx:
+                        params, scores, best = round_fn(params, data, mask,
+                                                        ckeys)
+                        log = {"scores": scores, "best": best}
+                    else:
+                        params, scores, sel = _fedavg_participants(
+                            round_fn, params, data, mask, sel_key, ckeys,
+                            n_clients, m)
+                        log = {"scores": scores, "participants": sel}
+                    if any(due):
+                        if due[i]:
+                            with torch.no_grad():
+                                loss, acc = task.loss_fn(params, eval_batch)
+                            loss, acc = loss.float(), acc.float()
+                        else:
+                            loss = acc = torch.full((), float("nan"),
+                                                    device=rng.device)
+                        log["eval_loss"], log["eval_acc"] = loss, acc
+                logs.append(log)
+            out = {k: torch.stack([log[k] for log in logs]) for k in logs[0]}
+            if rec is not None:
+                out["spans"], block_fn.span_schema = rec.finish()
+        return params, rng, out
 
+    block_fn.span_schema = None
     return block_fn
 
 
@@ -338,7 +357,11 @@ class CapturedBlock:
     flow into block k+1's inputs on the stream, with no host round trip.
 
     The capture records ``bwo_evolve``'s launches without running them;
-    each replay runs them, and counts them (``launches`` a replay).
+    each replay runs them, and counts them (``launches`` a replay).  The
+    capture is a ``capture`` host span (:func:`repro_torch.spans.host`,
+    under ``owner``), which ``capture_s`` reads; ``span_schema`` is the
+    block's device span schema, fixed by the capture (None without
+    spans).
 
     With ``keep_graph`` the graph keeps its ``cudaGraph_t`` after
     instantiation, so that its nodes can be dumped
@@ -347,23 +370,29 @@ class CapturedBlock:
     """
 
     def __init__(self, block_fn, params, rng, data, mask, eval_batch,
-                 round_offset: int, stream, keep_graph: bool = False):
+                 round_offset: int, stream, keep_graph: bool = False,
+                 owner: Optional[int] = None):
         self.params = tree.map(torch.clone, params)
         self.rng = rng.clone()
         self.eval_batch = (None if eval_batch is None
                            else tree.map(torch.clone, eval_batch))
         self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         before = bwo_kernel.launches
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.out = block_fn(self.params, self.rng, data, mask,
-                                self.eval_batch, round_offset)
-        if keep_graph:
-            self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
+        with spanlog.host("capture", owner) as self._capture:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.out = block_fn(self.params, self.rng, data, mask,
+                                    self.eval_batch, round_offset)
+            if keep_graph:
+                self.graph.instantiate()
+        self.span_schema = getattr(block_fn, "span_schema", None)
         self.launches = bwo_kernel.launches - before
         bwo_kernel.launches = before        # recorded, not yet run
         self.replays = 0
+
+    @property
+    def capture_s(self) -> float:
+        """The capture's seconds, read from its ``capture`` host span."""
+        return self._capture.seconds
 
     def __call__(self, params, rng, eval_batch):
         for dst, src in zip(tree.leaves(self.params), tree.leaves(params)):
@@ -414,10 +443,15 @@ class BatchedRoundEngine:
     and workspaces for that stream); ``warmup_launches`` counts the
     ``bwo_evolve`` launches that warm-up ran.  A capture that fails
     raises: there is no eager fallback on the card.
+
+    Spans (:mod:`repro_torch.spans`): the warm-up round and each capture
+    are host spans under ``span_owner``; with ``spans`` on, each block
+    stamps its device spans, and ``block_spans`` is the schema of the
+    block that :meth:`run_block` ran last (None with ``spans`` off).
     """
 
     def __init__(self, task: Task, strategy, hp: ClientHP,
-                 client_data: Sequence[Any], device):
+                 client_data: Sequence[Any], device, spans: bool = True):
         stacked, mask = stack_clients(client_data, pad=True)
         if stacked is None:
             raise ValueError(
@@ -446,6 +480,9 @@ class BatchedRoundEngine:
         self.captures: List[tuple] = []
         self.warmup_launches = 0
         self._capture_stream = None
+        self.spans = bool(spans)
+        self.span_owner = spanlog.new_owner()
+        self.block_spans = None
         if self.is_fedx:
             self.n_participants = self.n_clients
             self._round = make_batched_fedx_round(
@@ -466,7 +503,8 @@ class BatchedRoundEngine:
             fn = make_fused_rounds(
                 self._task, self._strategy, self._hp, key[0],
                 n_clients=self.n_clients, device=self.device,
-                vectorize=self._hp.vectorize, eval_every=key[1])
+                vectorize=self._hp.vectorize, eval_every=key[1],
+                spans=self.spans)
             self._fused[key] = fn
         return fn
 
@@ -482,8 +520,10 @@ class BatchedRoundEngine:
             eval_every = 0
         block = self.fused_rounds(rounds_per_dispatch, eval_every)
         if self.device.type != "cuda":
-            return block(global_params, rng, self.data, self.mask,
-                         eval_batch, round_offset)
+            out = block(global_params, rng, self.data, self.mask,
+                        eval_batch, round_offset)
+            self.block_spans = block.span_schema
+            return out
         shape = (int(rounds_per_dispatch), int(eval_every),
                  eval_due(int(rounds_per_dispatch), int(eval_every),
                           int(round_offset)))
@@ -495,24 +535,28 @@ class BatchedRoundEngine:
                                    eval_every)
             graph = CapturedBlock(block, global_params, rng, self.data,
                                   self.mask, eval_batch, round_offset,
-                                  stream)
+                                  stream, owner=self.span_owner)
             self.graphs[key] = graph
             self.captures.append(shape)
+        self.block_spans = graph.span_schema
         return graph(global_params, rng, eval_batch)
 
     def _warm_up(self, global_params, rng, eval_batch, eval_every: int):
         """The capture stream, after one eager round on it (the first
-        time only), its results dropped."""
+        time only), its results dropped; the round and its sync are the
+        ``warmup`` host span."""
         if self._capture_stream is not None:
             return self._capture_stream
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         before = bwo_kernel.launches
-        with torch.cuda.stream(stream):
-            self.fused_rounds(1, eval_every)(global_params, rng, self.data,
-                                             self.mask, eval_batch, 0)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
+        with spanlog.host("warmup", self.span_owner):
+            with torch.cuda.stream(stream):
+                self.fused_rounds(1, eval_every)(global_params, rng,
+                                                 self.data, self.mask,
+                                                 eval_batch, 0)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            torch.cuda.synchronize(self.device)
         self.warmup_launches += bwo_kernel.launches - before
         self._capture_stream = stream
         return stream

@@ -26,7 +26,12 @@ On top of the batched engine, ``rounds_per_dispatch > 1`` runs whole
 schedule moves to the device bit for bit, eval runs at a cadence inside
 the block, and the host pays one dispatch and one log copy per R rounds.
 On the card a block is one replay of a captured CUDA graph.
-``run_pipelined`` keeps two blocks in flight.
+``run_pipelined`` keeps two blocks in flight.  With ``spans`` on (the
+default) each block also stamps its device spans
+(:mod:`repro_torch.spans`), which ``finish_block`` fetches with the logs
+and appends to the span log; ``dispatch_block``, ``finish_block`` and its
+fetch are profiler ranges of those names on the host
+(:func:`repro_torch.spans.host_range`).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch import random, tree
+from repro_torch import random, spans as spanlog, tree
 from repro_torch.core.client import ClientHP, Task, make_update
 from repro_torch.core.comm import BlockTiming, CommMeter
 from repro_torch.core.engine import (BatchedRoundEngine, pipeline_blocks,
@@ -83,6 +88,8 @@ class PendingBlock:
     # on the card: recorded on the stream after the block's logs were
     # copied out; finish_block's copy waits for it, not for later blocks
     ready: Optional[Any] = None
+    # the schema of the device spans in logs["spans"], if any
+    span_schema: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -123,13 +130,18 @@ class Server:
     turns it on exactly when there is a fused batched block to overlap
     (batched engine, ``rounds_per_dispatch > 1``); "on"/"off" force it
     (on the sequential engine "on" degrades to the serial block loop).
+
+    ``spans``: stamp each fused block's device spans (the batched
+    engine's, :mod:`repro_torch.spans`); off, a block captures no stamp
+    and its logs hold no ``spans`` entry, with the same results.
     """
 
     def __init__(self, task: Task, strategy: Strategy, hp: ClientHP,
                  client_data: Sequence[Any], rng: torch.Tensor,
                  model_bytes: Optional[int] = None, engine: str = "auto",
                  rounds_per_dispatch: Union[int, str] = 1,
-                 pipeline_blocks: Union[bool, str] = "auto"):
+                 pipeline_blocks: Union[bool, str] = "auto",
+                 spans: bool = True):
         validate_engine(engine)
         rpd = parse_rounds_per_dispatch(rounds_per_dispatch)
         pipe = parse_pipeline_blocks(pipeline_blocks)
@@ -169,7 +181,8 @@ class Server:
             if want:
                 try:
                     self._engine = BatchedRoundEngine(
-                        task, strategy, hp, self.client_data, self.device)
+                        task, strategy, hp, self.client_data, self.device,
+                        spans=spans)
                 except ValueError:
                     if engine == "batched":
                         raise
@@ -258,28 +271,35 @@ class Server:
                 "pipeline — use run_block, which degrades gracefully")
         n_rounds = int(n_rounds or self.rounds_per_dispatch)
         t0 = time.perf_counter()
-        offset = self.rounds_completed
-        params, rng, logs = self._engine.run_block(
-            self.global_params, self.rng, n_rounds, eval_batch=eval_data,
-            eval_every=eval_every, round_offset=offset)
-        self.global_params, self.rng = params, rng
-        self.rounds_completed += n_rounds
-        ready = None
-        if self._fetch_stream is not None:
-            ready = torch.cuda.Event()
-            ready.record()
+        with spanlog.host_range("dispatch_block"):
+            offset = self.rounds_completed
+            params, rng, logs = self._engine.run_block(
+                self.global_params, self.rng, n_rounds, eval_batch=eval_data,
+                eval_every=eval_every, round_offset=offset)
+            self.global_params, self.rng = params, rng
+            self.rounds_completed += n_rounds
+            ready = None
+            if self._fetch_stream is not None:
+                ready = torch.cuda.Event()
+                ready.record()
         return PendingBlock(n_rounds=n_rounds, round_offset=offset,
                             logs=logs, t_dispatched=t0,
                             dispatch_s=time.perf_counter() - t0,
-                            ready=ready)
+                            ready=ready,
+                            span_schema=self._engine.block_spans)
 
     def finish_block(self, pending: PendingBlock) -> List[dict]:
         """Finish a dispatched block: record its rounds on the meter, copy
         the stacked logs to the host (the block's one device->host copy;
         under the pipeline the next block runs meanwhile), rebuild the
-        per-round info dicts, and append a
+        per-round info dicts, append the block's device spans (fetched in
+        the same copy) to the span log, and append a
         :class:`~repro_torch.core.comm.BlockTiming` to the meter's block
         ledger."""
+        with spanlog.host_range("finish_block"):
+            return self._finish_block(pending)
+
+    def _finish_block(self, pending: PendingBlock) -> List[dict]:
         n_rounds = pending.n_rounds
         if self.strategy.is_fedx:
             self.meter.record_rounds(self.strategy, n_rounds,
@@ -291,15 +311,20 @@ class Server:
         names = sorted(pending.logs)
         t0 = time.perf_counter()
         # the block's single device->host copy
-        if pending.ready is None:
-            host = _fetch(*(pending.logs[k] for k in names))
-        else:
-            with torch.cuda.stream(self._fetch_stream):
-                self._fetch_stream.wait_event(pending.ready)
+        with spanlog.host_range("fetch"):
+            if pending.ready is None:
                 host = _fetch(*(pending.logs[k] for k in names))
+            else:
+                with torch.cuda.stream(self._fetch_stream):
+                    self._fetch_stream.wait_event(pending.ready)
+                    host = _fetch(*(pending.logs[k] for k in names))
         t1 = time.perf_counter()
         out = {k: h.reshape(pending.logs[k].shape)
                for k, h in zip(names, host)}
+        if "spans" in out:
+            spanlog.record_block(self._engine.span_owner,
+                                 pending.round_offset, pending.span_schema,
+                                 out.pop("spans"))
         infos = self._block_infos(out, n_rounds)
         t2 = time.perf_counter()
         self.meter.record_block_timing(BlockTiming(

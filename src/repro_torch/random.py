@@ -34,6 +34,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -91,18 +93,21 @@ def fill(key: torch.Tensor, shape: Shape, draw, dtype) -> torch.Tensor:
     values of the flat counters start..start+n-1.  Up to ``PIECE`` elements
     it is one call; above, each piece of ``PIECE`` counters is drawn, cast
     and written into one preallocated output.  On the meta device (trees
-    of shapes only) nothing is drawn."""
+    of shapes only) nothing is drawn.  Every sized draw of a round goes
+    through here: inside a recorded block it is a ``threefry`` span
+    (``repro_torch.spans``) counting the counters hashed."""
     shape = _shape(shape)
     if key.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     n = math.prod(shape)
-    if n <= PIECE:
-        return draw(0, n).to(dtype).reshape(shape)
-    out = torch.empty(n, dtype=dtype, device=key.device)
-    for start in range(0, n, PIECE):
-        m = min(PIECE, n - start)
-        out[start:start + m] = draw(start, m)
-    return out.reshape(shape)
+    with spans.span("threefry", n):
+        if n <= PIECE:
+            return draw(0, n).to(dtype).reshape(shape)
+        out = torch.empty(n, dtype=dtype, device=key.device)
+        for start in range(0, n, PIECE):
+            m = min(PIECE, n - start)
+            out[start:start + m] = draw(start, m)
+        return out.reshape(shape)
 
 
 def PRNGKey(seed: int, device) -> torch.Tensor:

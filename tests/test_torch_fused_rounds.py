@@ -244,7 +244,9 @@ def test_fused_block_reads_nothing_on_the_host(strategy, kw, vectorize):
         params, rng, logs = block(server.global_params, server.rng,
                                   engine.data, engine.mask, teval, 0)
     assert rec.seen == []
-    assert all(v.shape[0] == 2 for v in logs.values())
+    # each round's logs, and the block's span stamps (spans are on)
+    assert "spans" in logs
+    assert all(v.shape[0] == 2 for k, v in logs.items() if k != "spans")
 
 
 def test_host_reads_sees_a_host_read():

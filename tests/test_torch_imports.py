@@ -72,8 +72,36 @@ def test_kernel_module_imports_without_nvcc(kernel):
     pytest.param("analysis", "report", id="report")])
 def test_copied_modules_match_the_reference(package, name):
     """``core/comm.py``, ``core/knobs.py`` and ``analysis/report.py`` are
-    the reference's pure-Python modules, copied below a two-line header."""
+    the reference's pure-Python modules, copied below a two-line header;
+    only the docstrings :data:`OWN_DOCSTRINGS` names are the port's own
+    (``BlockTiming``'s describes the port's capture and fetch)."""
     port = (PORT / package / f"{name}.py").read_text().splitlines()
     ref = (ROOT / "src" / "repro" / package / f"{name}.py").read_text()
     assert port[0].startswith(f"# A copy of repro/{package}/")
-    assert "\n".join(port[2:]) + "\n" == ref
+    port = "\n".join(port[2:]) + "\n"
+    for cls in OWN_DOCSTRINGS.get(name, ()):
+        assert _docstring(port, cls) != _docstring(ref, cls)
+        port, ref = _without_docstring(port, cls), _without_docstring(ref, cls)
+    assert port == ref
+
+
+# classes of the copied modules whose docstrings the port rewrites
+OWN_DOCSTRINGS = {"comm": ("BlockTiming",)}
+
+
+def _class(text: str, cls: str) -> ast.ClassDef:
+    (node,) = [n for n in ast.parse(text).body
+               if isinstance(n, ast.ClassDef) and n.name == cls]
+    return node
+
+
+def _docstring(text: str, cls: str) -> str:
+    return ast.get_docstring(_class(text, cls))
+
+
+def _without_docstring(text: str, cls: str) -> str:
+    """``text`` less the lines of ``cls``'s docstring."""
+    doc = _class(text, cls).body[0]
+    lines = text.splitlines()
+    del lines[doc.lineno - 1:doc.end_lineno]
+    return "\n".join(lines) + "\n"
