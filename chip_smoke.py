@@ -293,6 +293,14 @@ CARDS = {"H100 PCIe": (2.0e12, 51e12, None, None),
 # outside the tensor cores).
 TF32_PER_BF16 = 0.5
 FLOPS_PER_GENE = 15          # bwo_evolve's float operations per gene
+# threefry's bound: the instructions a counter that only the integer ALU
+# pipe runs, 20 rotations (SHF) and 21 xors (LOP3), at 64 results a clock
+# an SM (the CUDA C++ Programming Guide's throughput table, compute
+# capability 9.0) on 132 SMs at 1.98 GHz (the H100 SXM).  The hash's 32
+# adds are left out: nvcc emits about two thirds of them as IMAD on the
+# FMA pipe, beside the ALU's work (csrc/threefry.cu's SASS)
+THREEFRY_INT32_OPS = 41
+INT32_RATE = 132 * 64 * 1.98e9
 SPIN_CYCLES = 2_000_000      # ~1 ms of the device's clock (time_ms's spin)
 
 # flash_attention checks: B, Sq, Sk, H, KV, hd, causal, window, q_offset,
@@ -3121,6 +3129,75 @@ def bwo_bound(torch, p1, p2, P, D, Dp, mem_rate, f32_rate):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def threefry_phase(torch, mem_rate):
+    """Phase 36: the threefry kernel at CNN FedBWO's two bulk draws under
+    vmap over 10 clients' keys (a BWO bit plane and the seeding's normal
+    noise), against the int64 route bit for bit (normal: the elements that
+    differ counted), timed beside its bound and the int64 route; then its
+    launches and counters in two eager FedBWO rounds at full width.
+    Returns the kernels line's entry.  No single PyTorch call computes the
+    draw."""
+    from repro_torch import random
+    from repro_torch.core import FLConfig, build_experiment
+    from repro_torch.kernels.threefry import ops as tf_ops, ref as tf_ref
+    from repro_torch.kernels.threefry import threefry as tf_kernel
+    print("== 36. threefry: the FedBWO cells' draws, the kernel against the "
+          "int64 route")
+    C, P, Dp, D = 10, 6, 2_465_408, 2_465_322
+    keys = random.split(random.PRNGKey(2024, "cuda"), C)
+    draws = {"bit plane, 10 x (6, 2,465,408)": ("bits", P * Dp, {}),
+             "seeding normal, 10 x (6, 2,465,322)":
+                 ("normal", P * D, {"lo": random._NORMAL_LO, "hi": 1.0})}
+    shapes = {}
+    for label, (kind, n, kw) in draws.items():
+        def kernel():
+            return torch.func.vmap(
+                lambda k: tf_ops.draw(k, 0, n, kind, **kw))(keys)
+
+        def plain():
+            return tf_ref.threefry_ref(keys, 0, n, kind, **kw)
+
+        before = tf_kernel.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        check(tf_kernel.launches == before + 1,
+              f"{label}: {tf_kernel.launches - before} launches, not 1")
+        want = plain()
+        differ = int((got != want).sum())
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        print(f"  {label}: {differ} of {C * n} differ from the int64 route "
+              f"(largest {err:.3g})")
+        check(differ == 0 or (kind == "normal" and err <= 1e-6),
+              f"{label}: the kernel is not the int64 route")
+        counters = C * n
+        timed = timed_entry(torch, kernel, plain, None, counters * 4,
+                            [(counters * THREEFRY_INT32_OPS, INT32_RATE)],
+                            mem_rate)
+        shapes[label] = {"counters": counters, "differ": differ,
+                         "max_abs_err": err, **timed}
+        torch.cuda.empty_cache()
+    cfg = FLConfig(strategy="fedbwo", task="cnn", bwo_kernel=True,
+                   device="cuda", max_rounds=2, tau=1.01)
+    exp = build_experiment(cfg)
+    torch.cuda.synchronize()
+    tf_kernel.launches = tf_kernel.words = 0
+    exp.run()
+    torch.cuda.synchronize()
+    launches = tf_kernel.launches // cfg.max_rounds
+    words = tf_kernel.words // cfg.max_rounds
+    print(f"  FedBWO, paper CNN, batched engine: {launches} launches and "
+          f"{words} counters a round (eager rounds)")
+    del exp
+    torch.cuda.empty_cache()
+    bits = shapes["bit plane, 10 x (6, 2,465,408)"]
+    return {"launches": tf_kernel.launches, "launches_per_round": launches,
+            "words_per_round": words,
+            **{k: bits[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "shapes": shapes}
+
+
 def bwo_phase(torch, mem_rate, f32_rate):
     """Phase 3.  Returns bwo_evolve's entry of the kernels line, all but
     its launches: the top-level times are the main path's launch (the
@@ -3901,6 +3978,7 @@ def main() -> int:
         flash_attention_bwd as fa_bwd_kernel)
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm_kernel
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd as ssm_bwd_kernel
+    from repro_torch.kernels.threefry import threefry as tf_kernel
     counters = (bwo_kernel, fa_kernel, ssm_kernel, fa_bwd_kernel,
                 ssm_bwd_kernel)
 
@@ -3938,7 +4016,8 @@ def main() -> int:
                   lambda: fa_bwd_kernel.build(fa_bwd_kernel.HOPPER_SOURCE),
               "flash_attention backward, 3xTF32":
                   lambda: fa_bwd_kernel.build(fa_bwd_kernel.TF32_SOURCE),
-              "ssm_scan backward": ssm_bwd_kernel.build}
+              "ssm_scan backward": ssm_bwd_kernel.build,
+              "threefry": tf_kernel.build}
 
     def timed_build(fn):
         t = time.perf_counter()
@@ -3953,6 +4032,7 @@ def main() -> int:
     print(f"build seconds {time.perf_counter() - t0:.2f}")
 
     # ------------------------------------------- 3.-6. the FL path --
+    threefry = threefry_phase(torch, mem_rate)
     bwo = bwo_phase(torch, mem_rate, f32_rate)
     grad_phase(torch)
     (bwo["launches"], bwo["launches_per_round"], bwo["round_time_s"],
@@ -4118,7 +4198,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:57",
         "differentiates": "src/repro/models/ssm.py:98 (the train step's "
                           "chunked associative scan, differentiated by XLA)",
-        "launches": jamba_train["ssm_scan_bwd"], **ssm_bwd}]
+        "launches": jamba_train["ssm_scan_bwd"], **ssm_bwd}, {
+        "name": "threefry", "route": "cuda",
+        "source": "src/repro_torch/csrc/threefry.cu",
+        "replaces": "none: XLA's threefry2x32 lowering of jax.random (the "
+                    "port's int64 torch ops, src/repro_torch/random.py)",
+        **threefry}]
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

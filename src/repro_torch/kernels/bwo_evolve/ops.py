@@ -1,7 +1,8 @@
 """One BWO generation step: rank parents, draw the random bits, apply the
 fused update — the kernel for a CUDA tensor, the plain version for a CPU
 tensor.  Under ``torch.func.vmap`` over clients the draws batch as they
-are (one threefry draw for all clients' bit planes) and the update is one
+are (on the card one threefry launch for all clients' bit planes, drawn
+as the int32 words the kernel reads) and the update is one
 launch over all clients' rows (``evolve``'s vmap rule).
 
 The draws reproduce the reference's (``repro/kernels/bwo_evolve/ops.py``)
@@ -19,12 +20,6 @@ from repro_torch.kernels.bwo_evolve import ref as ref_lib
 from repro_torch.kernels.bwo_evolve.bwo_evolve import bwo_evolve_cuda
 
 
-def _as_i32_words(bits: torch.Tensor) -> torch.Tensor:
-    """Unsigned 32-bit values held in int64 -> the int32 view of the same
-    words, as the kernel reads them."""
-    return (bits - ((bits >> 31) << 32)).to(torch.int32)
-
-
 def sample(pop, fit, key, *, pm: float, procreate_frac: float):
     """The generation's draws: (pop32, p1_idx, p2_idx, bits1, bits2, gate)."""
     P, D = pop.shape
@@ -34,8 +29,8 @@ def sample(pop, fit, key, *, pm: float, procreate_frac: float):
     p1_idx = order[random.randint(r_sel1, (P,), 0, n_par).long()].to(torch.int32)
     p2_idx = order[random.randint(r_sel2, (P,), 0, n_par).long()].to(torch.int32)
     Dp = -(-D // 128) * 128
-    bits1 = _as_i32_words(random.bits(r_b1, (P, Dp)))
-    bits2 = _as_i32_words(random.bits(r_b2, (P, Dp)))
+    bits1 = random.bits32(r_b1, (P, Dp))
+    bits2 = random.bits32(r_b2, (P, Dp))
     gate = random.bernoulli(r_gate, pm, (P, 1)).to(torch.float32)
     pop32 = pop.to(torch.float32).contiguous()
     return pop32, p1_idx, p2_idx, bits1, bits2, gate

@@ -9,9 +9,9 @@ XOR of the two output words.  ``split`` hashes the counters ``0..n-1`` and
 keeps both words as the new keys.
 
 A key is a 2-word int64 tensor ``[k_hi, k_lo]`` on the caller's device;
-every word holds an unsigned 32-bit value, and the arithmetic here works
-in int64 and masks to 32 bits, so the same plain integer ops run on the
-CPU and on the card.  Draws are returned on the key's device.
+every word holds an unsigned 32-bit value.  The plain route's arithmetic
+works in int64 and masks to 32 bits.  Draws are returned on the key's
+device.
 
 Each sampler mirrors the ``jax/_src/random.py`` function of the same name
 (jax 0.9.0): ``uniform`` builds floats from the top mantissa bits,
@@ -21,10 +21,16 @@ Each sampler mirrors the ``jax/_src/random.py`` function of the same name
 times, ``choice`` without replacement takes a permutation's prefix, and
 ``categorical`` is the Gumbel-max trick over ``gumbel`` (mode "low").
 
-A draw of more than ``PIECE`` elements is made piece by piece over
-disjoint counter ranges into one preallocated output, which gives the same
-values element for element and bounds the int64 temporaries by
-the piece, not the draw (a stack of experts is over a billion elements).
+On a CUDA key each sized draw and each ``split`` is one launch of the
+threefry kernel (``repro_torch.kernels.threefry``, ``csrc/threefry.cu``),
+which hashes the counters and maps them to the sampler's bits, uniforms,
+normals or booleans in registers: the same words as the int64 route, which
+stays as the plain version on the CPU (and on the meta device, which draws
+nothing).  On the CPU a draw of more than ``PIECE`` elements is made piece
+by piece over disjoint counter ranges into one preallocated output, which
+gives the same values element for element and bounds the int64
+temporaries by the piece, not the draw (a stack of experts is over a
+billion elements).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ _PARITY = 0x1BD11BDA
 
 Shape = Union[int, Sequence[int]]
 
-PIECE = 1 << 26              # counters hashed at once by a large draw
+PIECE = 1 << 26              # counters hashed at once by a large CPU draw
 
 
 def _shape(shape: Shape) -> tuple:
@@ -88,20 +94,37 @@ def _hash_iota(key, n: int, start: int = 0):
     return threefry2x32(k1, k2, idx >> 32, idx & MASK)
 
 
+def _i32(bits: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> the int32 words of the same
+    bits."""
+    return (bits - ((bits >> 31) << 32)).to(torch.int32)
+
+
+def _kernel(key: torch.Tensor, start: int, n: int, kind: str,
+            **params) -> torch.Tensor:
+    """The counters start..start+n-1 of a draw of ``kind`` under a CUDA
+    key: one launch of the threefry kernel, inside a ``threefry_kernel``
+    span counting the counters it hashed."""
+    from repro_torch.kernels.threefry import ops
+    with spans.span("threefry_kernel", n):
+        return ops.draw(key, start, n, kind, **params)
+
+
 def fill(key: torch.Tensor, shape: Shape, draw, dtype) -> torch.Tensor:
     """A draw of ``shape`` in ``dtype``, where ``draw(start, n)`` gives the
-    values of the flat counters start..start+n-1.  Up to ``PIECE`` elements
-    it is one call; above, each piece of ``PIECE`` counters is drawn, cast
-    and written into one preallocated output.  On the meta device (trees
-    of shapes only) nothing is drawn.  Every sized draw of a round goes
-    through here: inside a recorded block it is a ``threefry`` span
-    (``repro_torch.spans``) counting the counters hashed."""
+    values of the flat counters start..start+n-1.  On a CUDA key, or up to
+    ``PIECE`` elements, it is one call; above, on the CPU, each piece of
+    ``PIECE`` counters is drawn, cast and written into one preallocated
+    output.  On the meta device (trees of shapes only) nothing is drawn.
+    Every sized draw of a round goes through here: inside a recorded block
+    it is a ``threefry`` span (``repro_torch.spans``) counting the counters
+    hashed."""
     shape = _shape(shape)
     if key.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     n = math.prod(shape)
     with spans.span("threefry", n):
-        if n <= PIECE:
+        if n <= PIECE or key.device.type == "cuda":
             return draw(0, n).to(dtype).reshape(shape)
         out = torch.empty(n, dtype=dtype, device=key.device)
         for start in range(0, n, PIECE):
@@ -126,6 +149,9 @@ def as_key(key, device) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: a (num, 2) tensor of new keys."""
+    if key.device.type == "cuda":
+        from repro_torch.kernels.threefry import ops
+        return ops.draw(key, 0, num, "pairs")
     y1, y2 = _hash_iota(key, num)
     return torch.stack([y1, y2], dim=1)
 
@@ -134,8 +160,25 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: unsigned 32-bit values held
     in an int64 tensor.  The counter is the flat row-major index, so the
     same key gives other bits at another shape."""
-    return fill(key, shape, lambda start, n: _bits_at(key, start, n),
+    return fill(key, shape, lambda start, n: _bits_any(key, start, n),
                 torch.int64)
+
+
+def bits32(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``bits`` as int32 words (the same 32 bits, as a kernel reads them):
+    on a CUDA key the kernel's words, with no int64 in between."""
+    cuda = key.device.type == "cuda"
+    return fill(key, shape, lambda start, n: (
+        _kernel(key, start, n, "bits") if cuda
+        else _i32(_bits_at(key, start, n))), torch.int32)
+
+
+def _bits_any(key, start: int, n: int):
+    """``_bits_at`` on any device: the kernel's words widened on a CUDA
+    key."""
+    if key.device.type == "cuda":
+        return _kernel(key, start, n, "bits").to(torch.int64) & MASK
+    return _bits_at(key, start, n)
 
 
 def _bits_at(key, start: int, n: int):
@@ -149,14 +192,16 @@ def uniform(key: torch.Tensor, shape: Shape = (), dtype=torch.float32,
     mantissa of a float in [1, 2), less 1, scaled to [minval, maxval)."""
     if dtype != torch.float32:
         raise NotImplementedError(f"uniform is ported for float32, got {dtype}")
+    exact = span_is_power_of_two(minval, maxval)
+    if exact and key.device.type == "cuda":
+        return fill(key, shape, lambda start, n: _kernel(
+            key, start, n, "uniform", lo=minval, hi=maxval), dtype)
     # filled on the device: a tensor built from a host scalar is a copy
     # from pageable memory and a sync, which a CUDA graph capture refuses
     lo = torch.full((), minval, dtype=dtype, device=key.device)
     hi = torch.full((), maxval, dtype=dtype, device=key.device)
-    exact = span_is_power_of_two(minval, maxval)
-    return fill(key, shape,
-                lambda start, n: _uniform_at(key, start, n, lo, hi, exact),
-                dtype)
+    return fill(key, shape, lambda start, n: _uniform_of(
+        _bits_any(key, start, n), lo, hi, exact), dtype)
 
 
 def span_is_power_of_two(minval: float, maxval: float) -> bool:
@@ -169,7 +214,10 @@ def span_is_power_of_two(minval: float, maxval: float) -> bool:
 
 
 def _uniform_at(key, start: int, n: int, lo, hi, exact: bool):
-    b = _bits_at(key, start, n)
+    return _uniform_of(_bits_at(key, start, n), lo, hi, exact)
+
+
+def _uniform_of(b, lo, hi, exact: bool):
     # the float in [1, 2) with mantissa m = b >> 9, less 1, is m * 2^-23
     # exactly; computed so, not by a bit cast, since older torch has no
     # vmap rule for a dtype view
@@ -190,7 +238,11 @@ def _scale(f, lo, hi, exact: bool):
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
-    """``jax.random.bernoulli`` (mode "low"): ``uniform < p`` in float32."""
+    """``jax.random.bernoulli`` (mode "low"): ``uniform < p`` in float32
+    (on a CUDA key the kernel compares in registers)."""
+    if key.device.type == "cuda":
+        return fill(key, shape, lambda start, n: _kernel(
+            key, start, n, "bernoulli", p=p), torch.bool)
     return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
                                             device=key.device)
 
@@ -282,12 +334,18 @@ def normal(key: torch.Tensor, shape: Shape = (),
 
 def normal_at(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
     """Elements start..start+n-1 of any flat float32 ``normal`` draw under
-    ``key``: the piece ``fill`` asks for."""
+    ``key``: the piece ``fill`` asks for (on a CUDA key, the kernel's)."""
+    if key.device.type == "cuda":
+        return _kernel(key, start, n, "normal", lo=_NORMAL_LO, hi=1.0)
     lo = torch.full((), _NORMAL_LO, dtype=torch.float32, device=key.device)
     hi = torch.full((), 1.0, dtype=torch.float32, device=key.device)
-    u = _uniform_at(key, start, n, lo, hi, _NORMAL_EXACT)
+    return _normal_of(_uniform_at(key, start, n, lo, hi, _NORMAL_EXACT))
+
+
+def _normal_of(u: torch.Tensor) -> torch.Tensor:
+    """sqrt(2) * erfinv(u) in float32."""
     return _erfinv(u) * torch.full((), math.sqrt(2.0), dtype=torch.float32,
-                                   device=key.device)
+                                   device=u.device)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

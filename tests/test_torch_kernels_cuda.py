@@ -20,6 +20,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_kernel,
     ssm_scan_bwd as ssm_bwd)
+from repro_torch.kernels.threefry import (  # noqa: E402
+    ops as tf_ops, ref as tf_ref, threefry as tf_kernel)
 
 GRID = [(4, 128), (8, 100), (16, 1000), (6, 4097)]
 DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -1143,3 +1145,136 @@ def test_mesh_round_on_two_ranks_matches_the_sequential_engine():
                         tree.leaves(server.global_params)):
             torch.testing.assert_close(g, w.cpu(), rtol=1e-5, atol=1e-6)
         assert out["traffic"] == {"all_gather": 8, "broadcast": 4 * 21}
+
+
+# ------------------------------------------------------------ threefry --
+# kind and its parameters: the kernel's draws as random.py's samplers ask
+TF_KINDS = {"pairs": {}, "bits": {}, "uniform": {"lo": 0.0, "hi": 1.0},
+            "uniform(-1, 1)": {"lo": -1.0, "hi": 1.0},
+            "bernoulli": {"p": 0.4}}
+
+
+def _tf_draw(keys, start, n, kind, **kw):
+    """The kernel, one launch for all keys, and the int64 route."""
+    kind = kind.split("(")[0]
+    before = tf_kernel.launches
+    got = tf_ops.threefry(keys, start, n, kind, kw.get("lo", 0.0),
+                          kw.get("hi", 1.0), kw.get("p", 0.0))
+    torch.cuda.synchronize()
+    assert tf_kernel.launches == before + 1
+    return got, tf_ref.threefry_ref(keys, start, n, kind, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(TF_KINDS))
+def test_threefry_kernel_is_the_int64_route_at_the_cells_shapes(kind):
+    """Under vmap over 10 clients' keys, the draw at the BWO bit planes'
+    shape (6, 2,465,408) is one launch, equal bit for bit to the int64
+    route key by key; so is split's pair of words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    keys = R.split(R.PRNGKey(31, "cuda"), 10)
+    n = 6 * 2_465_408 if kind != "pairs" else 5
+    k = kind.split("(")[0]
+    kw = TF_KINDS[kind]
+    before = tf_kernel.launches
+    got = torch.func.vmap(lambda key: tf_ops.draw(key, 0, n, k, **kw))(keys)
+    torch.cuda.synchronize()
+    assert tf_kernel.launches == before + 1
+    want = tf_ref.threefry_ref(keys, 0, n, k, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), f"{int((got != want).sum())} differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,n", [(0, 2**26 + 5), (3 * 2**32 + 17, 4099),
+                                     (2**32 - 7, 33)])
+@pytest.mark.parametrize("kind", list(TF_KINDS))
+def test_threefry_kernel_across_long_and_high_counter_ranges(kind, start, n):
+    """A draw across 2^26 counters (the CPU route's piece), and starts at
+    and past 2^32, where the counter's high word is not 0, at lengths that
+    are no multiple of 4 under 3 keys (rows start off the 16-byte
+    alignment): bit for bit the int64 route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    keys = R.split(R.PRNGKey(start % 1000 + n, "cuda"), 3 if n < 2**20 else 1)
+    got, want = _tf_draw(keys, start, n, kind, **TF_KINDS[kind])
+    assert torch.equal(got, want), f"{int((got != want).sum())} differ"
+
+
+@pytest.mark.cuda
+def test_threefry_samplers_take_the_kernel_on_the_card():
+    """random.py's samplers on a CUDA key: one launch each, the same words
+    as the int64 route (bits widened, bits32, uniform, bernoulli, split,
+    randint), and every draw inside a threefry span counted by
+    ``threefry.words``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    key = R.PRNGKey(5, "cuda")
+    shape = (7, 333)
+    before = tf_kernel.words
+    assert torch.equal(R.bits(key, shape), tf_ref.draw_ref(
+        key, 0, 7 * 333, "bits").reshape(shape).to(torch.int64) & R.MASK)
+    assert torch.equal(R.bits32(key, shape),
+                       tf_ref.draw_ref(key, 0, 7 * 333, "bits").reshape(shape))
+    assert torch.equal(R.uniform(key, shape), tf_ref.draw_ref(
+        key, 0, 7 * 333, "uniform").reshape(shape))
+    assert torch.equal(R.bernoulli(key, 0.3, shape), tf_ref.draw_ref(
+        key, 0, 7 * 333, "bernoulli", p=0.3).reshape(shape))
+    assert torch.equal(R.split(key, 4), tf_ref.draw_ref(key, 0, 4, "pairs"))
+    assert tf_kernel.words == before + 4 * 7 * 333 + 4
+    # a span that is no power of two: the float64 map over the kernel's bits
+    lo = torch.full((), -2.0, device="cuda")
+    hi = torch.full((), 3.0, device="cuda")
+    assert torch.equal(R.uniform(key, (50,), minval=-2.0, maxval=3.0),
+                       R._uniform_at(key, 0, 50, lo, hi, False))
+    got = R.randint(key, (6, 5), 0, 1000).cpu()
+    assert torch.equal(got, R.randint(R.PRNGKey(5, "cpu"), (6, 5), 0, 1000))
+
+
+@pytest.mark.cuda
+def test_threefry_normal_within_an_ulp_of_the_plain_route():
+    """The kernel's normal (erfinv in registers, no contraction) against
+    the torch ops' route on the card at the BWO seeding's shape under 10
+    keys: the count of elements that differ, within 1 ulp and 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    keys = R.split(R.PRNGKey(77, "cuda"), 10)
+    n = 6 * 2_465_322
+    got = torch.func.vmap(lambda k: R.normal(k, (n,)))(keys)
+    want = tf_ref.threefry_ref(keys, 0, n, "normal", lo=R._NORMAL_LO, hi=1.0)
+    differ = got != want
+    ulp = (torch.nextafter(want.abs(), torch.full_like(want, float("inf")))
+           - want.abs())
+    print(f"normal: {int(differ.sum())} of {got.numel()} differ from the "
+          f"plain route; largest {float((got - want).abs().max()):.3g}")
+    assert ((got - want).abs() <= ulp).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_threefry_graph_replays_under_the_key_in_memory():
+    """A captured draw reads its key from device memory at replay: write
+    another key into the captured buffer, replay, and get that key's draw
+    (the round keys of a captured block are computed on the device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    key = R.PRNGKey(1, "cuda")
+    n = 4 * 130_001
+    for kind, draw in (("bits", lambda k: R.bits32(k, (n,))),
+                       ("pairs", lambda k: R.split(k, 3)),
+                       ("normal", lambda k: R.normal(k, (n,)))):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            draw(key)                                    # warm-up
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = draw(key)
+        for seed in (2, 3):
+            new = R.PRNGKey(seed, "cuda")
+            key.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, draw(new)), (kind, seed)

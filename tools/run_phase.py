@@ -18,6 +18,7 @@ that ``.gitignore`` lists) can be compared on one card in one run.
     python3 tools/run_phase.py 33 [TREE]      # the mesh schedules, 10 ranks
     python3 tools/run_phase.py 34 [TREE]      # flcheck on the card
     python3 tools/run_phase.py 35 [TREE]      # the dry run, the cost model
+    python3 tools/run_phase.py 36 [TREE]      # the threefry kernel
 
 TREE defaults to this checkout.  The phase builds and loads the tree's own
 kernels (its ``build/kernels``) and prints what that tree's phase prints,
@@ -63,7 +64,10 @@ runs flcheck on the card: the strict audit of the FL main path at full
 width (its block's CUDA graph read), its rounds against an unaudited
 build's, FedAvg's audit and two planted faults.  ``35`` runs the dry
 run at full width (four host-only subprocesses) and the cost model of
-OLMo-1B's train step recorded on the card.
+OLMo-1B's train step recorded on the card.  ``36`` checks the threefry
+kernel at CNN FedBWO's bit-plane and seeding draws against the int64
+route, times both beside the kernel's bound, and counts its launches in
+two eager FedBWO rounds.
 """
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ def main() -> int:
                                              "27"}
     new_paths = set(phase.split(",")) <= {"28", "29", "30", "31", "32"}
     if phase not in ("7", "10", "seq", "whisper", "3b", "4c", "17", "18", "19",
-                     "20", "33", "34", "35") and not slice_phases \
+                     "20", "33", "34", "35", "36") and not slice_phases \
             and not new_paths:
         print(__doc__, file=sys.stderr)
         return 2
@@ -154,6 +158,8 @@ def main() -> int:
         from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
         times = cs.dryrun_phase(torch, (bwo_evolve, flash_attention, ssm_scan,
                                         flash_attention_bwd, ssm_scan_bwd))[1]
+    elif phase == "36":
+        times = cs.threefry_phase(torch, mem)["shapes"]
     elif phase == "4c":
         from repro_torch.kernels.bwo_evolve import bwo_evolve
         from repro_torch.kernels.flash_attention import flash_attention
