@@ -10,7 +10,9 @@ One JSON line a reading: ``{"seed", "kind", "numbers"}``; ``kind`` is
 below the configuration's float32), or a fault: ``skip_sgd`` (a client's
 step returns its state), ``keep_state`` (the server keeps the old
 model), ``half_batch`` (each loss over half the batch), ``flip_best`` (the
-winner reported one client on).  Needs a CUDA device, as ``run.py``.
+winner reported one client on), and, in a cell that compares
+``score_gap_p90``, ``tail_skip_sgd`` (the last tenth of the clients skip
+their SGD).  Needs a CUDA device, as ``run.py``.
 """
 import time
 
@@ -38,7 +40,11 @@ def readings(spec, seed: int, device: str):
     ref = fl.Model(cfg, device, fl.Precision("float64"))
     follow = check.reference_rounds(ref, inputs, seed, traffic, n)[0]
     kinds = [("control", fl.Model(cfg, device, fl.Precision("tf32")), ())]
-    for f in FAULTS:
+    planted = FAULTS
+    if "score_gap_p90" in spec.limits:
+        # a fault in a few clients, for the number that sees them
+        planted += ("tail_skip_sgd",)
+    for f in planted:
         if f == "flip_best" and traffic["strategy"] != "fedbwo":
             continue
         model = fl.Model(cfg, device, fl.Precision("float64"),
@@ -61,13 +67,11 @@ def control_at_ends(obs, inputs, model, traffic):
     ends = []
     for flat, info in obs.ends:
         flat = flat.float()
-        info = dict(info, eval_loss=ctrl.evaluate(
-            flat, inputs.eval["images"], inputs.eval["labels"])[0])
+        info = dict(info, eval_loss=ctrl.evaluate(flat, inputs.eval)[0])
         if "best_client" in info:
             k = info["best_client"]
-            c = inputs.clients[k]
             info["scores"] = list(info["scores"])
-            info["scores"][k] = ctrl.fitness(flat, c["images"], c["labels"],
+            info["scores"][k] = ctrl.fitness(flat, inputs.clients[k],
                                              traffic["fitness_batches"])
         ends.append((flat, info))
     return check.end_numbers(model, inputs, traffic, check.Observed(

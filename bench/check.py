@@ -61,10 +61,6 @@ def server_key(seed: int) -> tuple:
     return tf.split(tf.key_from_seed(seed))[0]
 
 
-def clients_of(inputs) -> list:
-    return [(c["images"], c["labels"]) for c in inputs.clients]
-
-
 def info_of(out: fl.RoundOut, eval_loss: float) -> dict:
     info = {"scores": [float(s) for s in out.scores],
             "eval_loss": eval_loss}
@@ -80,25 +76,26 @@ def reference_rounds(model: fl.Model, inputs, seed: int, traffic: dict,
     """``n_rounds`` rounds of the reference from the benchmark's initial
     model: ``(infos, params after each round)``.  ``faults`` plants the
     faults a run can have, for the check's own readings: ``skip_sgd`` (a
-    client step that returns its state), ``keep_state`` (the server keeps
-    the old model), ``flip_best`` (the winner reported one client on)."""
+    client step that returns its state), ``tail_skip_sgd`` (the same in the
+    last tenth of the clients only), ``keep_state`` (the server keeps the
+    old model), ``flip_best`` (the winner reported one client on)."""
     hp = round_hp(traffic)
     n_part = counts.n_participants(traffic)
     flat = inputs.weights.to(model.precision.dtype)
     rng = server_key(seed)
-    images, labels = inputs.eval["images"], inputs.eval["labels"]
     infos, params = [], []
     for _ in range(n_rounds):
-        out = fl.fl_round(model, flat, clients_of(inputs), rng, hp,
+        out = fl.fl_round(model, flat, inputs.clients, rng, hp,
                           traffic["strategy"], n_part,
                           skip_sgd="skip_sgd" in faults,
-                          keep_state="keep_state" in faults)
+                          keep_state="keep_state" in faults,
+                          skip_tail="tail_skip_sgd" in faults)
         rng, flat = out.rng, out.params
-        info = info_of(out, model.evaluate(flat, images, labels)[0])
+        info = info_of(out, model.evaluate(flat, inputs.eval)[0])
         if out.members is not None:
             # each client's model, for judging a winner that a near-tie
             # gave to another client than the reference's
-            info["eval_by_client"] = [model.evaluate(m, images, labels)[0]
+            info["eval_by_client"] = [model.evaluate(m, inputs.eval)[0]
                                       for m in out.members]
         if "flip_best" in faults and out.best is not None:
             info["best_client"] = (out.best + 1) % len(out.scores)
@@ -168,6 +165,10 @@ def numbers(model: fl.Model, inputs, seed: int, traffic: dict,
         eval_gaps.append(_rel(got["eval_loss"], want_eval))
     out["score_gap"] = max(score_gaps)
     out["score_gap_median"] = float(np.median(score_gaps))
+    # the gap that the worst tenth of the clients reach: a fault confined
+    # to a few clients, which leaves the median client alone
+    out["score_gap_p90"] = float(
+        np.sort(score_gaps)[-fl.tail_size(len(score_gaps))])
     out["round_eval_gap"] = max(eval_gaps)
     if fedbwo:
         out["winner_gap"] = winner
@@ -185,17 +186,15 @@ def end_numbers(model: fl.Model, inputs, traffic: dict,
     round's winner."""
     fedbwo = traffic["strategy"] == "fedbwo"
     out = {}
-    images, labels = inputs.eval["images"], inputs.eval["labels"]
     fit_gaps, end_gaps = [], []
     for flat, info in obs.ends:
         flat = flat.to(model.precision.dtype)
         end_gaps.append(_rel(info["eval_loss"],
-                             model.evaluate(flat, images, labels)[0]))
+                             model.evaluate(flat, inputs.eval)[0]))
         if fedbwo:
             k = info["best_client"]
-            c = inputs.clients[k]
             fit_gaps.append(_rel(info["scores"][k], model.fitness(
-                flat, c["images"], c["labels"], traffic["fitness_batches"])))
+                flat, inputs.clients[k], traffic["fitness_batches"])))
     out["eval_gap"] = max(end_gaps)
     if fedbwo:
         out["fitness_gap"] = max(fit_gaps)

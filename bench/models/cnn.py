@@ -6,7 +6,8 @@ order, dense -> hidden, dropout (training only), dense -> hidden, dense ->
 classes; ReLU after every layer but the last; stride 1 and SAME padding.
 Weights are laid out as the FL genome is: convolutions (kh, kw, cin,
 cout), dense (in, out), layers in name order, each layer's bias before its
-weight.  Images come in (B, H, W, C).
+weight.  Images come in (B, H, W, C); the data and the loss are the
+classifiers' (``classifier.py``).
 
 ``mm`` is applied to both operands of every product (the control's
 rounding on a device without TF32); by default it is the identity.
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from bench.models.classifier import cross_entropy, make_data  # noqa: F401
 
 
 def _ident(x):
@@ -89,3 +92,10 @@ def logits(cfg: dict, p: dict, images, keep=None, mm=_ident):
         x = torch.where(keep, x / (1 - rate), torch.zeros_like(x))
     x = F.relu(_dense(p, "fc2", x, mm))
     return _dense(p, "out", x, mm)
+
+
+def loss(cfg: dict, p: dict, batch: dict, keep=None, mm=_ident):
+    """Mean negative log-likelihood and accuracy of a batch of
+    ``images`` and ``labels``."""
+    return cross_entropy(logits(cfg, p, batch["images"], keep, mm),
+                         batch["labels"])

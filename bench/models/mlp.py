@@ -2,11 +2,14 @@
 dense layers with ReLU, a dense output; plain PyTorch.  Weights are laid
 out as the FL genome is: dense (in, out), layers in name order, each
 layer's bias before its weight.  Images come in (B, H, W, C) and are
-flattened in that order.  No dropout.  ``mm`` as in ``cnn.py``.
+flattened in that order.  No dropout.  ``mm`` as in ``cnn.py``; the data
+and the loss are the classifiers' (``classifier.py``).
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
+
+from bench.models.classifier import cross_entropy, make_data  # noqa: F401
 
 
 def _ident(x):
@@ -44,3 +47,10 @@ def logits(cfg: dict, p: dict, images, keep=None, mm=_ident):
     x = F.relu(mm(x) @ mm(p["fc1.w"]) + p["fc1.b"])
     x = F.relu(mm(x) @ mm(p["fc2.w"]) + p["fc2.b"])
     return mm(x) @ mm(p["out.w"]) + p["out.b"]
+
+
+def loss(cfg: dict, p: dict, batch: dict, keep=None, mm=_ident):
+    """Mean negative log-likelihood and accuracy of a batch of
+    ``images`` and ``labels``."""
+    return cross_entropy(logits(cfg, p, batch["images"], keep, mm),
+                         batch["labels"])

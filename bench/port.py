@@ -2,12 +2,14 @@
 built from a configuration, a traffic mix and the benchmark's own inputs.
 
 The port receives only what the benchmark made: its task wraps the port's
-own loss and hands out the benchmark's initial weights; the clients' data
-and the evaluation data go in through ``build_experiment``'s hooks.
+own loss (``bench/ports/<model>.py``) and hands out the benchmark's initial
+weights; the clients' data and the evaluation data go in through
+``build_experiment``'s hooks.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 
 import torch
@@ -16,17 +18,10 @@ from bench.data import Inputs
 
 
 def port_task(cfg: dict):
-    """The port's task for the configuration's ``task``."""
-    from repro_torch.configs.paper_cnn import CNNConfig
-    from repro_torch.data.synthetic import cnn_task, mlp_task
-    if cfg["task"] == "cnn":
-        fields = {f.name for f in dataclasses.fields(CNNConfig)} - {"name"}
-        return cnn_task(CNNConfig(**{k: cfg[k] for k in fields}))
-    if cfg["task"] == "mlp":
-        return mlp_task(hidden=cfg["hidden"], image_size=cfg["image_size"],
-                        channels=cfg["channels"],
-                        num_classes=cfg["num_classes"])
-    raise ValueError(f"no port task {cfg['task']!r}")
+    """The port's task for the configuration: ``port_task(cfg)`` of
+    ``bench/ports/<model>.py``."""
+    return importlib.import_module(f"bench.ports.{cfg['model']}") \
+        .port_task(cfg)
 
 
 def weights_tree(task, layout: list, flat: torch.Tensor):

@@ -6,9 +6,10 @@ procreation -> cannibalism) and the key schedule the configuration
 states, one client after another, in a stated precision: float64, or
 float32 with TF32 products (the control).  Nothing here imports the port.
 
-A model is a flat genome vector plus the layout of its leaves; a client
-dataset is ``images (n_batches, B, H, W, C)`` and ``labels (n_batches,
-B)``.  Keys are threefry word pairs (``threefry``).
+A model is a flat genome vector plus the layout of its leaves; a batch is
+a dict of tensors with a leading sample axis (its keys are the model
+module's), and a client dataset the same dict with ``(n_batches, B)``
+leading axes.  Keys are threefry word pairs (``threefry``).
 """
 from __future__ import annotations
 
@@ -74,10 +75,21 @@ class Precision:
              torch.backends.cudnn.allow_tf32) = saved
 
 
+def leading(data: dict) -> int:
+    """The length of the dict's leading axis (every tensor shares it)."""
+    return next(iter(data.values())).shape[0]
+
+
+def batch_at(data: dict, i: int) -> dict:
+    """Batch ``i`` of a client dataset."""
+    return {k: v[i] for k, v in data.items()}
+
+
 class Model:
     """A configuration's plain model (``bench/models/<model>.py``) on a
     device, in a precision.  ``half_batch`` plants a fault (the loss over
-    the first half of each batch), for the check's own tests."""
+    the first half of each batch: every tensor of the dict halved), for
+    the check's own tests."""
 
     def __init__(self, cfg: dict, device, precision: Precision,
                  half_batch: bool = False):
@@ -99,32 +111,30 @@ class Model:
         return {name: p.reshape(shape)
                 for (name, shape), p in zip(self.layout, parts)}
 
-    def loss(self, p: dict, images, labels, keep=None):
-        """Mean negative log-likelihood and accuracy of a batch."""
+    def loss(self, p: dict, batch: dict, keep=None):
+        """The model module's mean loss and accuracy of a batch, its
+        floating tensors in the precision's type."""
         if self.half_batch:
-            h = images.shape[0] // 2
-            images, labels = images[:h], labels[:h]
+            h = leading(batch) // 2
+            batch = {k: v[:h] for k, v in batch.items()}
             keep = None if keep is None else keep[:h]
         dt = self.precision.dtype
-        logits = self.mod.logits(self.cfg, p, images.to(dt), keep, self.mm)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels.long()[:, None]).mean()
-        acc = (logits.argmax(-1) == labels).to(dt).mean()
-        return nll, acc
+        batch = {k: v.to(dt) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        return self.mod.loss(self.cfg, p, batch, keep, self.mm)
 
-    def evaluate(self, flat, images, labels):
+    def evaluate(self, flat, batch: dict):
         with torch.no_grad(), self.precision.products(self.device):
-            loss, acc = self.loss(self.unravel(flat), images, labels)
+            loss, acc = self.loss(self.unravel(flat), batch)
         return float(loss), float(acc)
 
-    def fitness(self, flat, images, labels, n_batches: int) -> float:
+    def fitness(self, flat, data: dict, n_batches: int) -> float:
         """Mean loss over the first ``n_batches`` batches (a client with
         fewer repeats its last one)."""
-        nb = images.shape[0]
+        nb = leading(data)
         p = self.unravel(flat)
         with torch.no_grad(), self.precision.products(self.device):
-            losses = [self.loss(p, images[min(i, nb - 1)],
-                                labels[min(i, nb - 1)])[0]
+            losses = [self.loss(p, batch_at(data, min(i, nb - 1)))[0]
                       for i in range(n_batches)]
         return float(torch.stack(losses).mean())
 
@@ -153,11 +163,11 @@ def _dropout_keys(key, epochs: int, n_batches: int) -> np.ndarray:
     return np.array(out, dtype=np.int64)
 
 
-def local_sgd(model: Model, flat, images, labels, key, hp: RoundHP,
+def local_sgd(model: Model, flat, data: dict, key, hp: RoundHP,
               skip: bool = False):
     """Plain SGD over the client's batches for ``hp.local_epochs`` epochs,
     one dropout mask a step; ``skip`` plants a fault (no step taken)."""
-    nb, B = images.shape[:2]
+    nb, B = next(iter(data.values())).shape[:2]
     shape = model.mod.dropout_shape(model.cfg, B)
     dkeys = _dropout_keys(key, hp.local_epochs, nb)
     masks = None
@@ -175,7 +185,7 @@ def local_sgd(model: Model, flat, images, labels, key, hp: RoundHP,
                       torch.split(flat.clone(), model.sizes)]
             p = {name: t.reshape(shape_)
                  for (name, shape_), t in zip(model.layout, leaves)}
-            loss = model.loss(p, images[i], labels[i],
+            loss = model.loss(p, batch_at(data, i),
                               None if masks is None else masks[s])[0]
             grads = torch.autograd.grad(loss, leaves)
             flat = torch.cat([(t - hp.lr * g).detach().reshape(-1)
@@ -237,16 +247,16 @@ def bwo_generation(model: Model, pop, fit, key, hp: RoundHP, fit_fn):
     return all_pop[torch.as_tensor(keep, device=dev)], all_fit[keep]
 
 
-def fedbwo_client(model: Model, flat, images, labels, key, hp: RoundHP,
+def fedbwo_client(model: Model, flat, data: dict, key, hp: RoundHP,
                   skip_sgd: bool = False):
     """One FedBWO client: local SGD, a population seeded around the trained
     model (member 0 the model itself), ``hp.generations`` generations.
     -> (best fitness, best member)."""
     r_sgd, r_mh = tf.split(key)
-    x0 = local_sgd(model, flat, images, labels, r_sgd, hp, skip=skip_sgd)
+    x0 = local_sgd(model, flat, data, r_sgd, hp, skip=skip_sgd)
 
     def fit_fn(pop):
-        return np.array([model.fitness(m, images, labels, hp.fitness_batches)
+        return np.array([model.fitness(m, data, hp.fitness_batches)
                          for m in pop])
 
     spread = hp.bwo["init_spread"]
@@ -264,13 +274,13 @@ def fedbwo_client(model: Model, flat, images, labels, key, hp: RoundHP,
     return float(fit[i]), pop[i]
 
 
-def fedavg_client(model: Model, flat, images, labels, key, hp: RoundHP,
+def fedavg_client(model: Model, flat, data: dict, key, hp: RoundHP,
                   skip_sgd: bool = False):
     """One FedAvg client: local SGD; its score is the trained model's
     fitness.  -> (score, trained model)."""
     r_sgd, _ = tf.split(key)
-    x = local_sgd(model, flat, images, labels, r_sgd, hp, skip=skip_sgd)
-    return model.fitness(x, images, labels, hp.fitness_batches), x
+    x = local_sgd(model, flat, data, r_sgd, hp, skip=skip_sgd)
+    return model.fitness(x, data, hp.fitness_batches), x
 
 
 @dataclasses.dataclass
@@ -283,23 +293,30 @@ class RoundOut:
     members: Optional[list] = None  # FedBWO: each client's best member
 
 
+def tail_size(n: int) -> int:
+    """A tenth of ``n`` clients, rounded up: how many ``skip_tail``
+    breaks and how far down ``check``'s ``score_gap_p90`` reads."""
+    return max(1, -(-n // 10))
+
+
 def fl_round(model: Model, flat, clients, rng, hp: RoundHP, strategy: str,
              n_participants: int, skip_sgd: bool = False,
-             keep_state: bool = False) -> RoundOut:
+             keep_state: bool = False, skip_tail: bool = False) -> RoundOut:
     """One round from the server's key: ``split(rng, n + 2) -> (next rng,
     selection key, one key a client)``.  FedBWO: every client updates and
     reports its best fitness; the server adopts the lowest scorer's model.
     FedAvg: the participants (a permutation's prefix) update; the server
     takes the mean of their models.  ``keep_state`` plants a fault (the
-    global model is not replaced)."""
+    global model is not replaced), ``skip_tail`` another (the last
+    ``tail_size`` clients of the round's order skip their SGD)."""
     n = len(clients)
     keys = tf.split(rng, n + 2)
     rng, sel_key, ckeys = keys[0], keys[1], keys[2:]
     if strategy == "fedbwo":
         scores, members = [], []
-        for k, (images, labels) in enumerate(clients):
-            s, x = fedbwo_client(model, flat, images, labels, ckeys[k], hp,
-                                 skip_sgd)
+        for k, data in enumerate(clients):
+            skip = skip_sgd or (skip_tail and k >= n - tail_size(n))
+            s, x = fedbwo_client(model, flat, data, ckeys[k], hp, skip)
             scores.append(s)
             members.append(x)
         best = int(np.argmin(scores))
@@ -307,10 +324,9 @@ def fl_round(model: Model, flat, clients, rng, hp: RoundHP, strategy: str,
         return RoundOut(rng, np.array(scores), best, None, new, members)
     sel = tf.permutation(sel_key, n)[:n_participants]
     scores, total = [], None
-    for k in sel:
-        images, labels = clients[k]
-        s, x = fedavg_client(model, flat, images, labels, ckeys[k], hp,
-                             skip_sgd)
+    for i, k in enumerate(sel):
+        skip = skip_sgd or (skip_tail and i >= len(sel) - tail_size(len(sel)))
+        s, x = fedavg_client(model, flat, clients[k], ckeys[k], hp, skip)
         scores.append(s)
         total = x if total is None else total + x
     new = flat if keep_state else total / len(sel)

@@ -20,11 +20,13 @@ CELL = {("mlp", "fedbwo"): "2nn-fedbwo-iid", ("cnn", "fedbwo"):
         "cnn-fedbwo-iid", ("cnn", "fedavg"): "cnn-fedavg-iid"}
 
 
-def spec(model: str, strategy: str, lr: float = 0.3) -> cell.Spec:
+def spec(model: str, strategy: str, lr: float = 0.3,
+         name: str = None) -> cell.Spec:
     """The cell's spec (its mix, limits and follow rounds) at a tiny size:
     3 clients of 2 batches, 2 epochs at lr 0.3 (so that a round moves the
-    model), pop 4, 2 generations, blocks of 2 rounds."""
-    real = cell.load_spec(CELL[(model, strategy)])
+    model), pop 4, 2 generations, blocks of 2 rounds.  ``name``: another
+    cell of the same model and strategy than ``CELL``'s."""
+    real = cell.load_spec(name or CELL[(model, strategy)])
     t = dict(real.traffic, n_clients=3, n_train=60, n_test=30,
              local_epochs=2, lr=lr, mh_pop=4, mh_generations=2,
              rounds_per_dispatch=2, trace_blocks=1)

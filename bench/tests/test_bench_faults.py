@@ -5,9 +5,11 @@ CPU, tiny sizes, the cells' own limits."""
 import time
 
 import pytest
+import torch
 
 import bench_tiny
 from bench import calibrate, cell, check
+from bench.reference import fl
 
 SEED = 2**31 + 4321
 
@@ -100,3 +102,55 @@ def test_the_control_is_not_correct(model, strategy):
         found["control"]
     for kind, numbers in found.items():
         assert not check.judge(numbers, spec.limits)[0], kind
+
+
+# the 50-client cell's limits, on the tiny CNN FedBWO run of 3 clients
+MANY = {"model": "cnn", "strategy": "fedbwo", "name": "cnn-fedbwo-50c"}
+
+
+def test_a_sound_run_is_correct_under_the_50_client_limits():
+    assert run(bench_tiny.spec(**MANY))["correct"]
+
+
+def tail_scores(monkeypatch):
+    """The last tenth of the clients (at least one) report a score 10 %
+    off: a wrong result in the tail chunk of the vmapped batch."""
+    from repro_torch.core import engine
+    fx = engine.make_batched_fedx_round
+
+    def fedx(*a, **k):
+        rf = fx(*a, **k)
+
+        def round_fn(gp, d, m, keys):
+            p, s, best = rf(gp, d, m, keys)
+            t = fl.tail_size(s.shape[0])
+            return p, torch.cat([s[:-t], s[-t:] * 1.1]), best
+        return round_fn
+
+    monkeypatch.setattr(engine, "make_batched_fedx_round", fedx)
+
+
+def test_a_fault_in_the_last_clients_fails_the_50_client_limits(monkeypatch):
+    """The median client does not see it; the worst tenth does."""
+    tail_scores(monkeypatch)
+    rows = run(bench_tiny.spec(**MANY))["checks"]
+    assert rows["score_gap_median"]["value"] <= \
+        rows["score_gap_median"]["limit"]
+    assert rows["score_gap_p90"]["value"] > rows["score_gap_p90"]["limit"]
+
+
+@pytest.mark.parametrize("fault", [keep_state, skip_sgd, half_batch,
+                                   altered_answer], ids=lambda f: f.__name__)
+def test_a_planted_fault_fails_the_50_client_limits(monkeypatch, fault):
+    fault(monkeypatch)
+    out = run(bench_tiny.spec(**MANY))
+    assert not out["correct"], out["checks"]
+
+
+def test_the_control_fails_the_50_client_limits():
+    spec = bench_tiny.spec(**MANY)
+    kinds = set()
+    for kind, numbers in calibrate.readings(spec, SEED, "cpu"):
+        assert not check.judge(numbers, spec.limits)[0], kind
+        kinds.add(kind)
+    assert "tail_skip_sgd" in kinds

@@ -91,6 +91,7 @@ def test_config_file(entry):
     assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
     assert counts.n_params(cfg) == cfg["params"]
     assert (BENCH / "models" / f"{cfg['model']}.py").exists()
+    assert (BENCH / "ports" / f"{cfg['model']}.py").exists()
 
 
 def test_every_config_used_and_four_chip_cells_rare():
